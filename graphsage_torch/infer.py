@@ -1,0 +1,395 @@
+"""Deterministic full-graph inference and serving bundles, on the card.
+
+Port of ``graphsage_tpu/infer.py``.  Every node is propagated one layer at a
+time over the full padded adjacency (all true neighbours, no sampling), so
+two calls give bit-identical embeddings.  MEAN layers use the pretransform
+(transform the [N, D] table once by the layer weight, then average H-wide
+rows); MAX layers aggregate the raw table, then transform.
+
+On the card each layer's aggregation is ONE launch of the hand-written
+kernel (``graphsage_torch/csrc/aggregate.cu``) over all rows: the kernel
+never builds the [block, S, D] gather that the JAX package bounds with
+``lax.map`` blocking.  On the CPU the plain versions run block by block
+under the same byte budget.
+
+Entry points run on the card unless the caller passes ``device="cpu"``; with
+no card and no device given they raise.
+
+Self-inclusion semantics match the samplers (reference src/models.py:285,
+297-298): the aggregation set is the neighbour set minus the node itself
+unless ``gcn``, in which case it is neighbours plus self, with self-loop
+edges masked so that self is never counted twice.  MEAN over zero valid
+slots gives 0.
+
+Bundles are a directory with ``bundle.json`` (``format_version`` 1, the same
+record as the JAX package writes) and ``params.npz``, one array per pytree
+path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from graphsage_torch.convert import (flatten_params, params_from_jax,
+                                     params_to_numpy, unflatten_params)
+from graphsage_torch.data.graph import PaddedAdjacency
+from graphsage_torch.models.graphsage import GraphSageConfig, compute_dtype
+from graphsage_torch.models.layers import (classifier_apply,
+                                           mean_pretransform,
+                                           sage_layer_apply)
+from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
+
+# Working-set budget for one block's [block, S, gather_dim] gather in the
+# plain versions on the CPU.
+_GATHER_BYTES_BUDGET = 256 << 20
+
+
+def _resolve_device(device: str | torch.device | None) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: graphsage_torch serves on the card; pass "
+                "device='cpu' to run the plain versions on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def _check_supported(cfg: GraphSageConfig, lstm_hybrid: bool) -> None:
+    if cfg.agg_func == "LSTM" or lstm_hybrid:
+        raise NotImplementedError(
+            "LSTM and cached-LSTM-hybrid serving are not ported yet "
+            "(ROADMAP, LSTM aggregator)")
+
+
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def _pick_block(n: int, width: int, gather_dim: int, itemsize: int,
+                requested: int | None) -> int:
+    """``gather_dim`` is the width of the rows actually gathered: out_size
+    for MEAN (the pretransform gathers H-wide activations, never raw
+    features), the raw feature dim for MAX layer 1."""
+    if requested is not None:
+        return max(1, min(requested, n))
+    per_row = max(1, width * gather_dim * itemsize)
+    block = _GATHER_BYTES_BUDGET // per_row
+    # no lower clamp beyond 1: a wide uncapped adjacency (power-law hubs)
+    # must be allowed tiny blocks
+    return int(np.clip(block, 1, max(1, n)))
+
+
+def _cat_rows(parts: list[torch.Tensor]) -> torch.Tensor:
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
+                h: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+                block: int) -> torch.Tensor:
+    """One full-table layer: h [N, Din] -> [N, H].
+
+    idx/mask: [N, S] aggregation slots (self slot prepended by the caller in
+    gcn mode).  The aggregation runs over row blocks of ``block`` rows; on
+    the card the caller passes ``block = N``, one kernel launch."""
+    w = params["layers"][layer]["weight"]
+    hdim = w.shape[0]
+    n = h.shape[0]
+    rows = [slice(r0, min(r0 + block, n)) for r0 in range(0, n, block)]
+
+    if cfg.agg_func == "MEAN":
+        if cfg.gcn:
+            z = mean_pretransform(w, h, gcn=True)               # [N, H]
+            out = [torch.relu(mean_aggregate(z, idx[r], mask[r]))
+                   for r in rows]
+        else:
+            z = mean_pretransform(w, h)                         # [N, 2H]
+            # z[:, H:] is a strided view; the kernel takes its row stride
+            out = [torch.relu(mean_aggregate(z[:, hdim:], idx[r], mask[r])
+                              + z[r, :hdim])
+                   for r in rows]
+        return _cat_rows(out)
+
+    if cfg.agg_func == "MAX":
+        out = []
+        for r in rows:
+            agg = max_aggregate(h, idx[r], mask[r])
+            self_rows = agg if cfg.gcn else h[r]
+            out.append(sage_layer_apply(params["layers"][layer], self_rows,
+                                        agg, gcn=cfg.gcn))
+        return _cat_rows(out)
+
+    raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
+
+
+def _slot_table(neighbors: torch.Tensor, degrees: torch.Tensor,
+                gcn: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The aggregation slots of every node: idx [N, S] int32 and mask
+    [N, S] float32, both contiguous (S = P, or P + 1 with gcn's self slot
+    first)."""
+    n, p = neighbors.shape
+    dev = neighbors.device
+    own = torch.arange(n, dtype=torch.int32, device=dev)
+    slot = torch.arange(p, dtype=torch.int32, device=dev)
+    valid = slot[None, :] < degrees[:, None]
+    # self never aggregates with itself: the reference removes self from
+    # the set unless gcn (src/models.py:297-298), and in gcn mode self
+    # enters once via the dedicated slot below; mask self-loop edges
+    # either way
+    valid &= neighbors != own[:, None]
+    mask = valid.float()
+    idx = neighbors.to(torch.int32)
+    if gcn:
+        idx = torch.cat([own[:, None], idx], dim=1)
+        mask = torch.cat([torch.ones((n, 1), device=dev), mask], dim=1)
+    return idx.contiguous(), mask.contiguous()
+
+
+def _full_embed(params: dict, cfg: GraphSageConfig, feats: torch.Tensor,
+                neighbors: torch.Tensor, degrees: torch.Tensor,
+                block: int) -> torch.Tensor:
+    """All-layer full-neighbourhood propagation: [N, D] -> [N, out_size]."""
+    idx, mask = _slot_table(neighbors, degrees, cfg.gcn)
+    h = feats.to(compute_dtype(cfg))
+    for layer in range(cfg.num_layers):
+        h = _layer_full(cfg, params, layer, h, idx, mask, block)
+    return h
+
+
+def full_graph_embeddings(params: dict, cfg: GraphSageConfig,
+                          feats, pad: PaddedAdjacency,
+                          block: int | None = None,
+                          fetch: bool = True,
+                          lstm_hybrid: bool = False,
+                          device: str | torch.device | None = None):
+    """Exact deterministic embeddings for every node: [N, out_size] f32.
+
+    ``params`` is the encoder pytree ({"layers": [{"weight"}]}) of tensors
+    or numpy arrays.  ``pad`` should be the full (uncapped) adjacency for
+    exact semantics; a width-capped table computes the same propagation
+    over the capped neighbour sets.  ``feats`` and ``pad``'s tables may be
+    numpy arrays or tensors; pass tensors already on ``device`` to avoid an
+    upload per call (``InferenceSession`` does).  ``block`` bounds the plain
+    versions' gather on the CPU; on the card each layer is one launch over
+    all rows and ``block`` is not used.  ``fetch=False`` returns the
+    on-device [N, out_size] tensor in the compute dtype instead of a host
+    float32 array.  ``lstm_hybrid=True`` (a cached-LSTM-hybrid model) and
+    LSTM configs raise ``NotImplementedError`` until LSTM is ported.
+    """
+    _check_supported(cfg, lstm_hybrid)
+    dev = _resolve_device(device)
+    params = params_from_jax(params, dev)
+    feats = _as_tensor(feats, dev)
+    n = pad.num_nodes
+    if dev.type == "cuda":
+        block = max(n, 1)
+    else:
+        gather_dim = (cfg.out_size if cfg.agg_func == "MEAN"
+                      else max(int(feats.shape[1]), cfg.out_size))
+        block = _pick_block(n, pad.width, gather_dim,
+                            compute_dtype(cfg).itemsize, block)
+    with torch.no_grad():
+        out = _full_embed(params, cfg, feats, _as_tensor(pad.neighbors, dev),
+                          _as_tensor(pad.degrees, dev), block)
+    if not fetch:
+        return out
+    return out.float().cpu().numpy()
+
+
+# --------------------------------------------------------------- serving
+
+_BUNDLE_META = "bundle.json"
+_BUNDLE_PARAMS = "params.npz"
+
+
+def _expected_shapes(mcfg: GraphSageConfig, num_classes: int) -> dict:
+    shapes = {"clf/weight": (num_classes, mcfg.out_size),
+              "clf/bias": (num_classes,)}
+    for i in range(mcfg.num_layers):
+        fan_in = mcfg.layer_input_size(i) * (1 if mcfg.gcn else 2)
+        shapes[f"sage/layers/{i}/weight"] = (mcfg.out_size, fan_in)
+    return shapes
+
+
+def export_bundle(path: str, params: dict, mcfg: GraphSageConfig,
+                  num_classes: int, meta: dict | None = None) -> None:
+    """Write a self-contained serving bundle: ``bundle.json`` + params.
+
+    ``params`` is the pytree {"sage": ..., "clf": ...} of tensors or numpy
+    arrays; they are stored as float32 numpy arrays keyed by pytree path."""
+    path = os.path.abspath(path)
+    os.makedirs(path, exist_ok=True)
+    record = {
+        "model": dataclasses.asdict(mcfg),
+        "num_classes": int(num_classes),
+        "format_version": 1,
+    }
+    if meta:
+        record["meta"] = meta
+    with open(os.path.join(path, _BUNDLE_META), "w") as f:
+        json.dump(record, f, indent=1)
+    np.savez(os.path.join(path, _BUNDLE_PARAMS),
+             **flatten_params(params_to_numpy(params)))
+
+
+def load_bundle(path: str) -> tuple[dict, GraphSageConfig, int, dict]:
+    """Restore (params, mcfg, num_classes, meta) from an exported bundle;
+    params come back as numpy arrays."""
+    path = os.path.abspath(path)
+    with open(os.path.join(path, _BUNDLE_META)) as f:
+        record = json.load(f)
+    version = record.get("format_version")
+    if version != 1:
+        raise ValueError(
+            f"bundle at {path} has format_version={version!r}; this "
+            f"build reads version 1 — re-export the bundle or upgrade")
+    mcfg = GraphSageConfig(**record["model"])
+    num_classes = int(record["num_classes"])
+    with np.load(os.path.join(path, _BUNDLE_PARAMS)) as npz:
+        flat = {k: npz[k] for k in npz.files}
+    got = {k: v.shape for k, v in flat.items()}
+    want = _expected_shapes(mcfg, num_classes)
+    if got != want:
+        raise ValueError(f"bundle at {path} holds params {got}, but its "
+                         f"config needs {want}")
+    return (unflatten_params(flat), mcfg, num_classes,
+            record.get("meta", {}))
+
+
+class InferenceSession:
+    """Serving-side handle: deterministic embeddings + class predictions.
+
+    Wraps a trained (or bundle-loaded) model with a graph: pins the params,
+    features and adjacency on the device once, computes the full-graph
+    embedding table once (lazily) and serves node queries from it.
+    """
+
+    def __init__(self, params: dict, mcfg: GraphSageConfig,
+                 feats, pad: PaddedAdjacency,
+                 block: int | None = None,
+                 lstm_hybrid: bool = False,
+                 device: str | torch.device | None = None) -> None:
+        _check_supported(mcfg, lstm_hybrid)
+        self.device = _resolve_device(device)
+        self.params = params_from_jax(params, self.device)
+        self.mcfg = mcfg
+        self.lstm_hybrid = lstm_hybrid
+        self.feats = _as_tensor(feats, self.device)
+        self.pad = PaddedAdjacency(
+            neighbors=_as_tensor(pad.neighbors, self.device),
+            degrees=_as_tensor(pad.degrees, self.device),
+            true_degrees=pad.true_degrees, truncated=pad.truncated)
+        self.block = block
+        self._emb: torch.Tensor | None = None       # [N, H] f32, on device
+        self._emb_host: np.ndarray | None = None
+
+    @classmethod
+    def from_bundle(cls, path: str, feats, pad: PaddedAdjacency,
+                    block: int | None = None,
+                    device: str | torch.device | None = None
+                    ) -> "InferenceSession":
+        params, mcfg, _ncls, meta = load_bundle(path)
+        return cls(params, mcfg, feats, pad, block,
+                   lstm_hybrid=bool(meta.get("lstm_hybrid", False)),
+                   device=device)
+
+    def _table(self) -> torch.Tensor:
+        if self._emb is None:
+            self._emb = full_graph_embeddings(
+                self.params["sage"], self.mcfg, self.feats, self.pad,
+                self.block, fetch=False, lstm_hybrid=self.lstm_hybrid,
+                device=self.device).float()
+        return self._emb
+
+    def embeddings(self) -> np.ndarray:
+        """[N, out_size] f32 table, computed once and cached."""
+        if self._emb_host is None:
+            self._emb_host = self._table().cpu().numpy()
+        return self._emb_host
+
+    def embed(self, nodes) -> np.ndarray:
+        """Rows of the embedding table; a scalar id yields a [1, H] batch
+        (predict/log_probs always return batched results)."""
+        return self.embeddings()[np.atleast_1d(np.asarray(nodes))]
+
+    def log_probs(self, nodes) -> np.ndarray:
+        ids = torch.as_tensor(np.atleast_1d(np.asarray(nodes)),
+                              device=self.device)
+        with torch.no_grad():
+            lp = classifier_apply(self.params["clf"], self._table()[ids])
+        return lp.float().cpu().numpy()
+
+    def predict(self, nodes) -> np.ndarray:
+        """argmax class per node (reference predicts via
+        classification(embs).max(1), src/utils.py:28-33)."""
+        return np.argmax(self.log_probs(nodes), axis=1)
+
+    def score_pairs(self, src, dst) -> np.ndarray:
+        """Cosine similarity between embedding pairs (the unsup objective's
+        score, reference src/models.py:82).  src/dst: equal-length node-id
+        arrays; returns [len] f32 in [-1, 1]."""
+        emb = self.embeddings()
+        a = emb[np.atleast_1d(np.asarray(src))]
+        b = emb[np.atleast_1d(np.asarray(dst))]
+        denom = (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+        return (a * b).sum(axis=1) / np.maximum(denom, 1e-12)
+
+
+def _main(argv=None) -> int:
+    """Serving CLI: load a bundle, embed/predict from the command line.
+
+    python -m graphsage_torch.infer --bundle bundles/cora --dataSet cora \
+        [--nodes 0,1,2] [--eval] [--save_embeddings out.npy] [--device cuda]
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(description=_main.__doc__)
+    ap.add_argument("--bundle", required=True)
+    ap.add_argument("--dataSet", default="cora")
+    ap.add_argument("--data_root", default=None)
+    ap.add_argument("--seed", type=int, default=824,
+                    help="dataset seed (split / synthetic generation) — "
+                         "must match the training run's")
+    ap.add_argument("--nodes", default=None,
+                    help="comma-separated node ids to predict")
+    ap.add_argument("--eval", action="store_true",
+                    help="report deterministic val/test micro-F1")
+    ap.add_argument("--save_embeddings", default=None,
+                    help="write the [N, H] f32 table as .npy")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to serve on (cpu runs the plain "
+                         "versions)")
+    args = ap.parse_args(argv)
+
+    from graphsage_torch.data import load_dataset
+
+    kw = {"root": args.data_root} if args.data_root else {}
+    ds = load_dataset(args.dataSet, seed=args.seed, **kw)
+    sess = InferenceSession.from_bundle(args.bundle, ds.features,
+                                        ds.graph.to_padded(),
+                                        device=args.device)
+    if args.nodes:
+        ids = np.array([int(x) for x in args.nodes.split(",")])
+        for i, p in zip(ids, sess.predict(ids)):
+            print(f"node {i}: class {p}")
+    if args.eval:
+        from graphsage_torch.train.metrics import micro_f1
+        for split, nodes in (("val", ds.val_nodes),
+                             ("test", ds.test_nodes)):
+            f1 = micro_f1(ds.labels[nodes], sess.predict(nodes))
+            print(f"{split} micro-F1: {f1:.4f}")
+    if args.save_embeddings:
+        np.save(args.save_embeddings, sess.embeddings())
+        print(f"wrote embeddings {sess.embeddings().shape} to "
+              f"{args.save_embeddings}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(_main())

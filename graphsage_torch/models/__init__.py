@@ -1,0 +1,26 @@
+from graphsage_torch.models.graphsage import GraphSageConfig, init_graphsage
+from graphsage_torch.models.layers import (
+    Classifier,
+    GraphSage,
+    SageLayer,
+    classifier_apply,
+    init_classifier,
+    init_sage_layer,
+    mean_pretransform,
+    sage_layer_apply,
+    xavier_uniform,
+)
+
+__all__ = [
+    "Classifier",
+    "GraphSage",
+    "GraphSageConfig",
+    "SageLayer",
+    "classifier_apply",
+    "init_classifier",
+    "init_graphsage",
+    "init_sage_layer",
+    "mean_pretransform",
+    "sage_layer_apply",
+    "xavier_uniform",
+]

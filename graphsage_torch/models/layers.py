@@ -1,0 +1,158 @@
+"""Dense layers: SageLayer, the classification head and the encoder.
+
+Port of ``graphsage_tpu/models/layers.py``.  The functions take parameters as
+plain dicts of tensors, laid out as the JAX package's pytrees (weights
+``[out, in]``), so ``graphsage_torch.convert.params_from_jax`` carries JAX
+params over unchanged.  The ``nn.Module``s below hold the same parameters and
+call the same functions.
+
+Reference semantics:
+- SageLayer (reference src/models.py:189-220): weight W in [out, 2*in] (or
+  [out, in] in gcn mode), xavier-uniform init, **no bias**; forward is
+  relu(concat([self, agg]) @ W.T).
+- Classification (reference src/models.py:8-27): Linear(emb -> classes) with
+  bias, xavier-uniform on the weight, U(+-1/sqrt(fan_in)) on the bias, then
+  log_softmax.
+
+Products take float32 operands, as the JAX package's ``jnp.dot`` does once
+it promotes a bfloat16 activation against the float32 weights, and round
+once to the activation dtype.  They are plain ``torch.matmul``; callers on the
+card set ``torch.backends.cuda.matmul.allow_tf32 = False`` for float32
+parity.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
+
+
+def xavier_uniform(generator: torch.Generator, shape: tuple[int, int],
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """torch.nn.init.xavier_uniform_ semantics for a 2-D weight [out, in]:
+    U(-a, a) with a = sqrt(6 / (fan_in + fan_out))."""
+    fan_out, fan_in = shape
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(shape, dtype=dtype).uniform_(-a, a,
+                                                    generator=generator)
+
+
+def init_sage_layer(generator: torch.Generator, input_size: int,
+                    out_size: int, gcn: bool = False,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    in_total = input_size if gcn else 2 * input_size
+    return {"weight": xavier_uniform(generator, (out_size, in_total), dtype)}
+
+
+def init_classifier(generator: torch.Generator, emb_size: int,
+                    num_classes: int,
+                    dtype: torch.dtype = torch.float32) -> dict:
+    bound = 1.0 / math.sqrt(emb_size)
+    weight = xavier_uniform(generator, (num_classes, emb_size), dtype)
+    bias = torch.empty((num_classes,), dtype=dtype).uniform_(
+        -bound, bound, generator=generator)
+    return {"weight": weight, "bias": bias}
+
+
+def mean_pretransform(w: torch.Tensor, h: torch.Tensor,
+                      gcn: bool = False) -> torch.Tensor:
+    """Transform-first half of the MEAN pretransform: z = h @ W_part.T.
+
+    The mean is linear, so relu(W @ [self || mean(neigh)]) equals
+    relu(mean(z_agg[neigh]) + z_self[self]) with the table transformed
+    once.  Returns [N, H] for gcn, else [N, 2H] with the SELF columns in
+    ``[:, :H]`` and the AGG columns in ``[:, H:]`` (the convention of
+    ``graphsage_tpu/models/layers.py:40-59``).  ``w`` is the sage layer's
+    [H, 2D] (or [H, D] gcn) weight."""
+    w = w.float()
+    if not gcn:
+        d = h.shape[1]
+        w = torch.cat([w[:, :d], w[:, d:]], dim=0)  # [2H, D]
+    return torch.matmul(h.float(), w.T).to(h.dtype)
+
+
+def sage_layer_apply(params: dict, self_feats: torch.Tensor,
+                     agg_feats: torch.Tensor,
+                     gcn: bool = False) -> torch.Tensor:
+    """relu(concat([self || agg]) @ W.T); gcn mode drops the concat
+    (reference src/models.py:209-220)."""
+    if gcn:
+        combined = agg_feats
+    else:
+        combined = torch.cat([self_feats, agg_feats], dim=-1)
+    out = torch.matmul(combined.float(), params["weight"].float().T)
+    return torch.relu(out).to(combined.dtype)
+
+
+def classifier_apply(params: dict, embeds: torch.Tensor) -> torch.Tensor:
+    """log_softmax(Linear(embeds)), reference src/models.py:25-27."""
+    logits = (torch.matmul(embeds.float(), params["weight"].float().T)
+              + params["bias"].float())
+    return torch.log_softmax(logits, dim=-1).to(embeds.dtype)
+
+
+class SageLayer(nn.Module):
+    def __init__(self, input_size: int, out_size: int, gcn: bool = False, *,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        self.gcn = gcn
+        self.weight = nn.Parameter(init_sage_layer(
+            generator, input_size, out_size, gcn, dtype)["weight"])
+
+    def forward(self, self_feats: torch.Tensor,
+                agg_feats: torch.Tensor) -> torch.Tensor:
+        return sage_layer_apply({"weight": self.weight}, self_feats,
+                                agg_feats, gcn=self.gcn)
+
+
+class Classifier(nn.Module):
+    def __init__(self, emb_size: int, num_classes: int, *,
+                 generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        p = init_classifier(generator, emb_size, num_classes, dtype)
+        self.weight = nn.Parameter(p["weight"])
+        self.bias = nn.Parameter(p["bias"])
+
+    def forward(self, embeds: torch.Tensor) -> torch.Tensor:
+        return classifier_apply({"weight": self.weight, "bias": self.bias},
+                                embeds)
+
+
+class GraphSage(nn.Module):
+    """The L-layer encoder (``cfg`` is a ``GraphSageConfig``).
+
+    ``forward(h, idx, mask)`` encodes every row of ``h`` over one slot table
+    ([N, S] ``idx`` into ``h``'s rows, ``mask`` their weights; in gcn mode
+    the table includes the node's own slot), aggregating first and then
+    transforming, as the JAX package's ``graphsage_apply`` does with every
+    frontier equal to that table.  ``params()`` gives the JAX-layout dict
+    ``{"layers": [{"weight"}]}`` of the live parameters."""
+
+    def __init__(self, cfg, *, generator: torch.Generator,
+                 dtype: torch.dtype = torch.float32) -> None:
+        super().__init__()
+        if cfg.agg_func not in ("MEAN", "MAX"):
+            raise NotImplementedError(
+                f"agg_func {cfg.agg_func!r}: the port has MEAN and MAX; "
+                f"LSTM is queued (ROADMAP, LSTM aggregator)")
+        self.agg_func = cfg.agg_func
+        self.layers = nn.ModuleList(
+            SageLayer(cfg.layer_input_size(i), cfg.out_size, cfg.gcn,
+                      generator=generator, dtype=dtype)
+            for i in range(cfg.num_layers))
+
+    def params(self) -> dict:
+        return {"layers": [{"weight": layer.weight} for layer in self.layers]}
+
+    def forward(self, h: torch.Tensor, idx: torch.Tensor,
+                mask: torch.Tensor) -> torch.Tensor:
+        aggregate = mean_aggregate if self.agg_func == "MEAN" else max_aggregate
+        for layer in self.layers:
+            h = layer(h, aggregate(h, idx, mask))
+        return h

@@ -1,0 +1,19 @@
+from graphsage_torch.ops.aggregate import (
+    LAUNCHES,
+    max_aggregate,
+    max_aggregate_plain,
+    mean_aggregate,
+    mean_aggregate_plain,
+    reset_launches,
+    sum_aggregate_plain,
+)
+
+__all__ = [
+    "LAUNCHES",
+    "max_aggregate",
+    "max_aggregate_plain",
+    "mean_aggregate",
+    "mean_aggregate_plain",
+    "reset_launches",
+    "sum_aggregate_plain",
+]

@@ -1,0 +1,160 @@
+"""Neighbourhood aggregation: plain PyTorch versions and the CUDA kernels.
+
+Port of ``graphsage_tpu/ops/aggregate.py`` (the XLA ops) and
+``graphsage_tpu/ops/pallas_aggregate.py`` (the Pallas TPU kernels) in one
+module.  Aggregation is a padded fixed-fanout segment reduce: every output
+row owns ``S`` index slots into the previous layer's embedding table, with a
+weight mask.
+
+- ``*_aggregate_plain``: straightforward PyTorch, on any device.  They are
+  the CPU path and the reference the kernels are held against on the card.
+- ``mean_aggregate`` / ``max_aggregate``: the public ops.  A CPU tensor takes
+  the plain version; a CUDA tensor launches the hand-written kernel
+  (``graphsage_torch/csrc/aggregate.cu``) or raises — there is no fallback.
+
+Semantics (``graphsage_tpu/ops/aggregate.py:52-71``): sums accumulate in
+float32 and the result is returned in the embed dtype, rounded once; the
+mask weights are taken in float32.  MEAN divides by ``max(sum(mask), 1)``, so
+a row with no valid slot gives 0.  MAX takes the elementwise max over the
+slots with ``mask > 0`` and gives 0 for a row with no such slot.
+
+The kernels are forward only for now: on CUDA, a call that autograd would
+have to differentiate raises.  Their backward (a scatter-add, as the JAX
+package's ``_pallas_mean_bwd`` is) comes with the training slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphsage_torch.ops import build
+
+# Launches of each CUDA kernel.  A wrapper adds one where it launches its
+# kernel and nowhere else; runs that must show they went through the kernels
+# set these to 0 before and read them after.
+LAUNCHES = {"gather_mean": 0, "gather_max": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_INT_MAX = 2**31 - 1
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _weighted_sum(embed: torch.Tensor, idx: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """sum_s weights[:, s] * embed[idx[:, s]] in float32, slot by slot (never
+    builds the [U, S, D] gather)."""
+    acc = torch.zeros((idx.shape[0], embed.shape[1]), dtype=torch.float32,
+                      device=embed.device)
+    idx = idx.long()
+    for s in range(idx.shape[1]):
+        acc = acc + embed[idx[:, s]].float() * weights[:, s, None]
+    return acc
+
+
+def sum_aggregate_plain(embed: torch.Tensor, idx: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Masked sum: embed [M, D], idx [U, S] int, mask [U, S] -> [U, D]."""
+    return _weighted_sum(embed, idx, mask.float()).to(embed.dtype)
+
+
+def mean_aggregate_plain(embed: torch.Tensor, idx: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean (reference MEAN aggregator, src/models.py:311-314)."""
+    weights = mask.float()
+    total = _weighted_sum(embed, idx, weights)
+    count = weights.sum(dim=1, keepdim=True)
+    return (total / count.clamp_min(1.0)).to(embed.dtype)
+
+
+def max_aggregate_plain(embed: torch.Tensor, idx: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """Masked max (reference MAX aggregator, src/models.py:316-326)."""
+    valid = mask > 0
+    idx = idx.long()
+    neg_inf = torch.tensor(float("-inf"), device=embed.device)
+    acc = torch.full((idx.shape[0], embed.shape[1]), float("-inf"),
+                     dtype=torch.float32, device=embed.device)
+    for s in range(idx.shape[1]):
+        rows = embed[idx[:, s]].float()
+        acc = torch.maximum(acc, torch.where(valid[:, s, None], rows,
+                                             neg_inf))
+    any_valid = valid.any(dim=1, keepdim=True)
+    return torch.where(any_valid, acc, torch.zeros_like(acc)).to(embed.dtype)
+
+
+def _check_kernel_args(embed: torch.Tensor, idx: torch.Tensor,
+                       mask: torch.Tensor) -> None:
+    """What the kernels take: embed [M, D] float32/bfloat16 with unit column
+    stride (any row stride), idx [U, S] int32 and mask [U, S] float32, both
+    contiguous, all on one CUDA device."""
+    if embed.dim() != 2 or idx.dim() != 2 or mask.shape != idx.shape:
+        raise ValueError(
+            f"expected embed [M, D], idx [U, S], mask [U, S]; got "
+            f"{tuple(embed.shape)}, {tuple(idx.shape)}, {tuple(mask.shape)}")
+    if embed.dtype not in _DTYPE_CODES:
+        raise TypeError(f"embed must be float32 or bfloat16, not "
+                        f"{embed.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, not {idx.dtype}")
+    if mask.dtype != torch.float32:
+        raise TypeError(f"mask must be float32, not {mask.dtype}")
+    if embed.shape[1] > 1 and embed.stride(1) != 1:
+        raise ValueError(f"embed needs unit column stride, has strides "
+                         f"{embed.stride()}")
+    if not (idx.is_contiguous() and mask.is_contiguous()):
+        raise ValueError("idx and mask must be contiguous")
+    if max(*idx.shape, embed.shape[1], embed.stride(0)) > _INT_MAX:
+        raise ValueError("U, S and D must each fit in 32 bits")
+    if not (embed.is_cuda and idx.device == embed.device
+            and mask.device == embed.device):
+        raise ValueError(f"embed, idx and mask must lie on one CUDA device; "
+                         f"got {embed.device}, {idx.device}, {mask.device}")
+
+
+def _launch(name: str, symbol: str, embed: torch.Tensor, idx: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    _check_kernel_args(embed, idx, mask)
+    if torch.is_grad_enabled() and (embed.requires_grad
+                                    or mask.requires_grad):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward yet (ROADMAP: the "
+            f"training slice); call it under torch.no_grad()")
+    u, s = idx.shape
+    d = embed.shape[1]
+    out = torch.empty((u, d), dtype=embed.dtype, device=embed.device)
+    if u == 0 or d == 0:
+        return out
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(embed.device).cuda_stream
+    rc = getattr(lib, symbol)(
+        _DTYPE_CODES[embed.dtype], embed.device.index, embed.data_ptr(),
+        embed.stride(0), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        u, s, d, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({lib.gs_error_string(rc).decode()})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def mean_aggregate(embed: torch.Tensor, idx: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean.  CPU tensors take :func:`mean_aggregate_plain`; CUDA
+    tensors launch the ``gather_mean`` kernel (see :func:`_check_kernel_args`
+    for what it takes)."""
+    if not embed.is_cuda:
+        return mean_aggregate_plain(embed, idx, mask)
+    return _launch("gather_mean", "gs_gather_mean", embed, idx, mask)
+
+
+def max_aggregate(embed: torch.Tensor, idx: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Masked max.  CPU tensors take :func:`max_aggregate_plain`; CUDA
+    tensors launch the ``gather_max`` kernel."""
+    if not embed.is_cuda:
+        return max_aggregate_plain(embed, idx, mask)
+    return _launch("gather_max", "gs_gather_max", embed, idx, mask)
