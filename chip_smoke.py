@@ -1,12 +1,13 @@
-"""Drive graphsage_torch's serving path on one NVIDIA card and hold its CUDA
-kernels against their plain PyTorch versions.
+"""Drive graphsage_torch's serving and training paths on one NVIDIA card and
+hold its CUDA kernels against their plain PyTorch versions.
 
     python3 chip_smoke.py        # from the repository root; needs one card
 
 Phases, each of which fails the run (non-zero exit) if its check fails:
 
-1. Build the kernels from graphsage_torch/csrc with nvcc (build seconds and
-   nvcc's register report printed).
+1. Build the kernels from graphsage_torch/csrc with nvcc, one process per
+   source, all at once, and the native host engine (csrc/gs_native.cpp)
+   with g++ beside them (build seconds and nvcc's register report printed).
 2. A small graph through the kernels against a float64 numpy oracle of the
    reference semantics (MEAN/MAX x gcn).
 3. Serving at full width: the 100,000-node, 1,000,000-edge power-law graph
@@ -26,8 +27,48 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
      timed with CUDA events over many warm launches, beside its byte bound,
      the plain version's time and a one-call library yardstick.
 
+4. Training at full width (compact pipeline, the CLI's default), on the
+   same graph: 2-layer MEAN GraphSAGE, hidden 128, fanout 10, b_sz 20, lr
+   0.7, seed 824, float32.  Two cuts, both of scale only: the train split
+   is cut to its first 1,000 nodes, so an epoch is 50 steps; negatives are
+   "uniform" (GS_EXACT_NEG_BUDGET_S=0), because "auto" chooses by the
+   host's core count.  The graph, the features and the widths are not cut.
+   For plus_unsup (normal loss, 100 negatives) and for sup:
+   - launch counts set to 0, then one epoch through Trainer.fit
+     (train_epoch + evaluate); counts read: gather_mean 2 a step plus 2 per
+     embedding of val (and of test, when val F1 improved), pair_scores 1 a
+     step under plus_unsup and 0 under sup;
+   - the same epoch through the plain versions on the card, from the same
+     initial params and RandomState (so the same host batches), in
+     lockstep: each plain step starts from the kernel run's params of that
+     step, and its loss and updated params are held to the tolerances
+     below (the last step's are the final params); a free-running plain
+     epoch is printed beside it, not asserted;
+   - ms/step (host clock around each synchronised step; median of steps 6
+     to 50, min, max), the loss curve, val F1, and the device's busy time
+     by kernel and idle share over a 5-step epoch (torch.profiler).
+5. The pair-score kernel at the step's own shape (20 targets over the
+   step's padded rows, H=128), at [512 x 2048] H=128 and at a ragged
+   [3 x 1000] H=100 case with zero rows: forward (float32 and bfloat16)
+   and gradient through PairScores against the plain version, and a kernel
+   row like the aggregate kernels' (yardstick: torch.mm of F.normalize'd
+   rows).  gather_mean at the step's two layer shapes: the forward kernel
+   row and the scatter-add gradient against autograd through the plain
+   version.
+6. End to end through the entry points, on powerlaw:2000:10000: the CLI
+   trains plus_unsup for one epoch on the card and exports a bundle
+   (graphsage_torch.cli.run, what ``main`` runs); the bundle's params equal
+   the trainer's best-val snapshot exactly; InferenceSession.from_bundle
+   serves it, its table equal to infer.full_graph_embeddings of those
+   params; val micro-F1 printed.
+
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
-reference value (the two versions may sum in different orders); MAX exact.
+reference value (the two versions may sum in different orders); MAX exact;
+bfloat16 pair scores within 2 ulps plus 1e-5 (SCORES_BF16_ATOL).
+Gradients: float32 rtol=atol=1e-5 (index_add_ adds with atomics, in no
+fixed order).  Training, kernels against plain versions in lockstep: step
+losses rtol LOSS_RTOL, params after each step atol PARAM_ATOL (see those
+constants).
 
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit from nvidia-smi, and the result line
@@ -37,7 +78,9 @@ power limit from nvidia-smi, and the result line
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -49,13 +92,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graphsage_torch import infer
+from graphsage_torch import cli, infer
+from graphsage_torch.convert import flatten_params
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
-from graphsage_torch.models import (GraphSageConfig, init_classifier,
-                                    init_graphsage)
+from graphsage_torch.models import (GraphSageConfig, graphsage,
+                                    init_classifier, init_graphsage)
+from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
-from graphsage_torch.ops import build
+from graphsage_torch.ops import build, sddmm
+from graphsage_torch.train import Trainer, TrainConfig, micro_f1
+from graphsage_torch.train.optim import tree_leaves
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
@@ -63,8 +110,20 @@ NODES, EDGES, FEATS, CLASSES, WIDTH, HIDDEN = (100_000, 1_000_000, 602, 16,
                                                32, 128)
 CONFIGS = (("MEAN", "float32"), ("MEAN", "bfloat16"), ("MAX", "bfloat16"))
 SOURCE = "graphsage_torch/csrc/aggregate.cu"
+SCORE_SOURCE = "graphsage_torch/csrc/sddmm.cu"
 REPLACES = {"gather_mean": "graphsage_tpu/ops/pallas_aggregate.py:60",
-            "gather_max": "graphsage_tpu/ops/pallas_aggregate.py:76"}
+            "gather_max": "graphsage_tpu/ops/pallas_aggregate.py:76",
+            "pair_scores": "graphsage_tpu/ops/sddmm.py:156"}
+TRAIN_NODES, B_SZ, LR, FANOUT, SEED = 1000, 20, 0.7, 10, 824
+# kernels against plain versions, step by step from the same params (see
+# train_method): the pair-score kernel sums in another order than
+# torch.matmul and index_add_ adds with atomics, so a step's loss and
+# update differ in the last bits (PERF.md, training section)
+LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-5
+# bfloat16 scores: both versions sum in float32 (in other orders, up to
+# ~1e-5 apart at H=128) and round once; near 0, where the sum cancels,
+# that difference is many bf16 ulps, so 2 ulps plus this absolute term
+SCORES_BF16_ATOL = 1e-5
 
 
 def log(*args) -> None:
@@ -85,8 +144,10 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
-                exact: bool = False) -> float:
-    """Max abs error of got vs want; raises outside the stated tolerance."""
+                exact: bool = False, bf16_atol: float = 0.0) -> float:
+    """Max abs error of got vs want; raises outside the stated tolerance.
+    bf16_atol widens the bf16 tolerance where both sides round a float32
+    result of cancelling sums (dot products near 0)."""
     assert got.shape == want.shape and got.dtype == want.dtype, (
         name, got.shape, want.shape, got.dtype, want.dtype)
     diff = (got.float() - want.float()).abs()
@@ -94,7 +155,7 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
     if exact:
         ok = bool(torch.equal(got, want))
     elif want.dtype == torch.bfloat16:
-        ok = bool((diff <= 2 * bf16_ulp(want)).all())
+        ok = bool((diff <= 2 * bf16_ulp(want) + bf16_atol).all())
     else:
         ok = bool((diff <= 1e-5 + 1e-5 * want.float().abs()).all())
     if not ok:
@@ -119,15 +180,21 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 @contextlib.contextmanager
-def plain_aggregates():
-    """Serving through the plain versions on the card (the reference run)."""
-    saved = infer.mean_aggregate, infer.max_aggregate
-    infer.mean_aggregate = agg.mean_aggregate_plain
-    infer.max_aggregate = agg.max_aggregate_plain
+def patched(module, **attrs):
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
     try:
         yield
     finally:
-        infer.mean_aggregate, infer.max_aggregate = saved
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+def plain_aggregates():
+    """Serving through the plain versions on the card (the reference run)."""
+    return patched(infer, mean_aggregate=agg.mean_aggregate_plain,
+                   max_aggregate=agg.max_aggregate_plain)
 
 
 # ------------------------------------------------------------ small oracle
@@ -234,9 +301,11 @@ def kernel_row(name: str, label: str, embed: torch.Tensor,
 
 # ------------------------------------------------------------ serving
 
-def profile_embed_all(fn, wall_ms: float) -> None:
-    """Device kernel time by kernel over one embed-all (torch.profiler), and
-    the device's idle share against the warm embed-all time."""
+def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
+                      top: int = 8) -> None:
+    """Device kernel time by kernel over one call of fn (torch.profiler),
+    and the device's idle share against the warm wall time of that call.
+    The port's own kernels are listed even when they are not in the top."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -252,10 +321,12 @@ def profile_embed_all(fn, wall_ms: float) -> None:
         log("  profile: no device time recorded (not measured)")
         return
     busy = sum(t for t, _, _ in rows) / 1e3
-    log(f"  profile: device busy {busy:.6f} ms of embed_all_ms "
+    log(f"  profile: device busy {busy:.6f} ms of {what} "
         f"{wall_ms:.6f} (idle share {1 - busy / wall_ms:.4f}); by kernel:")
-    for t, key, count in sorted(rows, reverse=True)[:8]:
-        log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
+    ours = ("gather_reduce_kernel", "pair_scores_kernel")
+    for rank, (t, key, count) in enumerate(sorted(rows, reverse=True)):
+        if rank < top or any(name in key for name in ours):
+            log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
 
 
 def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
@@ -322,7 +393,7 @@ def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
         f"{min(times) * 1e3:.6f}, max {max(times) * 1e3:.6f}) nodes_per_s "
         f"{NODES / ms * 1e3:.1f} edge_slots_per_s "
         f"{2 * n_valid / ms * 1e3:.1f}")
-    profile_embed_all(embed_all, ms)
+    profile_device(embed_all, ms)
 
     # -------- whole table against the plain versions on the card
     table = embed_all()
@@ -354,12 +425,345 @@ def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
     return {"config": tag, "embed_all_ms": ms}, rows
 
 
+# ------------------------------------------------------------ training
+
+@contextlib.contextmanager
+def plain_training():
+    """Training through the plain versions on the card (the reference
+    run): autograd differentiates them."""
+    with patched(graphsage, mean_aggregate=agg.mean_aggregate_plain), \
+            patched(sddmm, pair_scores=sddmm.dense_pair_scores):
+        yield
+
+
+def make_trainer(ds, method: str, dev: torch.device) -> Trainer:
+    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN)
+    tcfg = TrainConfig(learn_method=method, unsup_loss="normal", epochs=1,
+                       b_sz=B_SZ, lr=LR, fanout=FANOUT, seed=SEED,
+                       verbose=False)
+    return Trainer(ds, cfg, tcfg, device=dev)
+
+
+def fit_timed(tr: Trainer, before=None,
+              after=None) -> tuple[list[float], float]:
+    """Trainer.fit for one epoch, with each step synchronised and timed on
+    the host clock; before(i) / after(i) run around step i, outside the
+    timed window.  Returns (step ms, fit seconds)."""
+    step_ms = []
+    step = tr._step
+
+    def timed_step(*args):
+        i = len(step_ms)
+        if before is not None:
+            before(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(i)
+        return loss
+
+    tr._step = timed_step
+    try:
+        t0 = time.perf_counter()
+        tr.fit()
+        fit_s = time.perf_counter() - t0
+    finally:
+        tr._step = step
+    return step_ms, fit_s
+
+
+def param_snapshot(tr: Trainer) -> list[torch.Tensor]:
+    return [p.detach().clone() for p in tree_leaves(tr.params)]
+
+
+def max_abs_diff(a: list[torch.Tensor], b: list[torch.Tensor]) -> float:
+    return max(float((x.detach() - y).abs().max()) for x, y in zip(a, b))
+
+
+def capture_step_inputs(tr: Trainer) -> dict:
+    """The tensors each kernel of one training step is called with: one
+    more batch built and stepped (after the counted run) with recorders in
+    front of the kernels' wrappers."""
+    seen = {"gather_mean": [], "pair_scores": []}
+
+    def mean_rec(embed, idx, mask):
+        seen["gather_mean"].append((embed.detach(), idx, mask))
+        return agg.mean_aggregate(embed, idx, mask)
+
+    def scores_rec(emb, target_rows, eps=1e-8):
+        seen["pair_scores"].append((emb.detach(), target_rows))
+        return sddmm.PairScores.apply(emb, target_rows, eps)
+
+    nodes = tr.ds.train_nodes[:B_SZ]
+    with patched(graphsage, mean_aggregate=mean_rec), \
+            patched(sddmm, pair_scores=scores_rec):
+        tr._step(*tr._build_train_batch(nodes))
+    torch.cuda.synchronize()
+    return seen
+
+
+def train_method(method: str, ds, dev: torch.device) -> dict:
+    """One epoch of `method` through the kernels (counted), held step by
+    step against the plain versions; returns what the kernel rows need.
+
+    The plain run is in lockstep: before each of its steps it takes the
+    kernel run's params from before that step, so each step's loss and
+    update are compared from the same params and the same host batch.
+    A free-running plain epoch is printed beside it, not asserted: under
+    plus_unsup, SGD at lr 0.7 can carry a last-bit difference (index_add_'s
+    atomics, another order of the score sums) to an O(1) one within 50
+    steps."""
+    tr = make_trainer(ds, method, dev)
+    snaps = []
+    agg.reset_launches()
+    step_ms, fit_s = fit_timed(tr, before=lambda i: snaps.append(
+        param_snapshot(tr)))
+    launches = dict(agg.LAUNCHES)
+    snaps.append(param_snapshot(tr))
+    steps = len(step_ms)
+    assert steps == TRAIN_NODES // B_SZ, steps
+    val_f1 = tr.history[-1]["val_f1"]
+    evals = 1 + ("test_f1" in tr.history[-1])
+    want = {"gather_mean": 2 * steps + 2 * evals, "gather_max": 0,
+            "pair_scores": steps if method == "plus_unsup" else 0}
+    log(f"[train {method}] main path: Trainer.fit, {steps} steps + "
+        f"{evals} evaluation embeddings in {fit_s:.3f} s; launches "
+        f"{launches}")
+    assert launches == want, (launches, want)
+
+    ref = make_trainer(ds, method, dev)
+    step_errs = []
+
+    def load(i):
+        with torch.no_grad():
+            for p, q in zip(tree_leaves(ref.params), snaps[i]):
+                p.copy_(q)
+
+    agg.reset_launches()
+    with plain_training():
+        plain_ms, plain_s = fit_timed(
+            ref, before=load, after=lambda i: step_errs.append(
+                max_abs_diff(tree_leaves(ref.params), snaps[i + 1])))
+    assert sum(agg.LAUNCHES.values()) == 0, agg.LAUNCHES
+    losses = np.asarray(tr.step_losses)
+    ref_losses = np.asarray(ref.step_losses)
+    assert np.isfinite(losses).all() and losses.shape == (steps,)
+    rel = np.abs(losses - ref_losses) / np.abs(ref_losses)
+    log(f"[train {method}] lockstep, kernels vs plain versions: step loss "
+        f"max relative difference {rel.max():.3e} (step "
+        f"{int(rel.argmax()) + 1}; tolerance {LOSS_RTOL}); params after "
+        f"each step max abs difference {max(step_errs):.3e} (step "
+        f"{int(np.argmax(step_errs)) + 1}; tolerance {PARAM_ATOL}); final "
+        f"params {step_errs[-1]:.3e}")
+    np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
+    assert max(step_errs) <= PARAM_ATOL, step_errs
+    del ref
+
+    free = make_trainer(ds, method, dev)
+    with plain_training():
+        fit_timed(free)
+    free_rel = (np.abs(losses - np.asarray(free.step_losses))
+                / np.abs(np.asarray(free.step_losses)))
+    first = np.flatnonzero(free_rel > LOSS_RTOL)
+    log(f"[train {method}] free-running plain epoch (not asserted): step "
+        f"loss max relative difference {free_rel.max():.3e} (first above "
+        f"{LOSS_RTOL}: step "
+        f"{int(first[0]) + 1 if first.size else 'none'}); final params max "
+        f"abs difference "
+        f"{max_abs_diff(tree_leaves(free.params), snaps[-1]):.3e}; val F1 "
+        f"{free.history[-1]['val_f1']:.6f}")
+    del free
+
+    tail = step_ms[5:]
+    ref_tail = plain_ms[5:]
+    log(f"[train {method}] ms_per_step {statistics.median(tail):.6f} "
+        f"(median of steps 6-{steps}; min {min(tail):.6f}, max "
+        f"{max(tail):.6f}); first step {step_ms[0]:.6f}; plain versions "
+        f"{statistics.median(ref_tail):.6f}; epoch + evaluation "
+        f"{fit_s:.3f} s (plain versions {plain_s:.3f} s)")
+    log(f"[train {method}] loss curve: "
+        + " ".join(f"{x:.6f}" for x in losses))
+    log(f"[train {method}] val F1 {val_f1:.6f}; history {tr.history}")
+
+    # device busy and idle share over a 5-step epoch (same trainer, the
+    # train split cut to 100 nodes), wall time from an unprofiled epoch
+    tr.ds = dataclasses.replace(tr.ds, train_nodes=ds.train_nodes[:100])
+    tr.train_epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_epoch()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    log(f"[train {method}] 5-step epoch {wall:.6f} ms (warm, prefetch on)")
+    profile_device(tr.train_epoch, wall, what="5-step epoch ms", top=12)
+    tr.ds = ds
+    return {"trainer": tr, "launches": launches,
+            "ms_per_step": statistics.median(tail)}
+
+
+# ------------------------------------------------------------ pair scores
+
+def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
+               launches: int) -> dict:
+    """The pair-score kernel against its plain version (forward in float32
+    and bfloat16, gradient through PairScores), and its kernel row."""
+    got = sddmm.pair_scores_kernel(emb, target_rows)
+    torch.cuda.synchronize()
+    err = check_close(f"pair_scores {label}", got,
+                      sddmm.dense_pair_scores(emb, target_rows))
+    e16 = emb.bfloat16()
+    err16 = check_close(f"pair_scores {label} bf16",
+                        sddmm.pair_scores_kernel(e16, target_rows),
+                        sddmm.dense_pair_scores(e16, target_rows),
+                        bf16_atol=SCORES_BF16_ATOL)
+    g = torch.randn(got.shape, generator=torch.Generator().manual_seed(5)
+                    ).to(emb.device)
+    grads = []
+    for fn in (sddmm.PairScores.apply, sddmm.dense_pair_scores):
+        leaf = emb.detach().clone().requires_grad_(True)
+        (fn(leaf, target_rows) * g).sum().backward()
+        grads.append(leaf.grad)
+    grad_err = check_close(f"pair_scores {label} gradient", grads[0],
+                           grads[1])
+
+    b, (u, h) = target_rows.shape[0], emb.shape
+    es = emb.element_size()
+    nbytes = u * h * es + b * 4 + b * u * es
+    ops = 2 * b * u * h + 3 * (u + b) * h
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    t_long = target_rows.long()
+    library = lambda: torch.mm(F.normalize(emb[t_long], eps=1e-8),
+                               F.normalize(emb, eps=1e-8).T)
+    library_err = float((library() - got).abs().max())
+    row = {
+        "name": f"pair_scores ({label})",
+        "route": "cuda",
+        "source": SCORE_SOURCE,
+        "replaces": REPLACES["pair_scores"],
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: sddmm.pair_scores_kernel(emb, target_rows),
+                      reps=100),
+        "plain_ms": cuda_ms(lambda: sddmm.dense_pair_scores(emb,
+                                                            target_rows),
+                            reps=50),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": cuda_ms(library, reps=50),
+    }
+    log(f"kernel {row['name']}: emb {tuple(emb.shape)} stride "
+        f"{emb.stride(0)} {emb.dtype}, {b} targets, {nbytes} bytes, {ops} "
+        f"operations; ms {row['ms']:.6f} bound_ms {row['bound_ms']:.6f} "
+        f"({row['bound_by']}) plain_ms {row['plain_ms']:.6f} library_ms "
+        f"{row['library_ms']:.6f} [torch.mm of F.normalize'd rows, max abs "
+        f"diff to the kernel {library_err}] max_abs_err {err} bf16 "
+        f"max_abs_err {err16} gradient max_abs_err {grad_err}")
+    return row
+
+
+def score_rows(step_inputs: dict, launches: int, dev: torch.device) -> list:
+    (emb, target_rows), = step_inputs["pair_scores"]
+    rows = [scores_row(f"training step, {target_rows.shape[0]} x "
+                       f"{emb.shape[0]}, H {emb.shape[1]}", emb,
+                       target_rows, launches)]
+    rng = np.random.RandomState(11)
+    big = torch.from_numpy(rng.randn(2048, 128).astype(np.float32)).to(dev)
+    rows.append(scores_row("512 x 2048, H 128", big, torch.from_numpy(
+        rng.randint(0, 2048, 512).astype(np.int32)).to(dev), launches))
+    ragged = rng.randn(1000, 100).astype(np.float32)
+    ragged[[0, 17, 999]] = 0.0
+    t = rng.randint(0, 1000, 3).astype(np.int32)
+    t[0] = 17                                      # a zero-norm target
+    rows.append(scores_row("ragged 3 x 1000, H 100, zero rows",
+                           torch.from_numpy(ragged).to(dev),
+                           torch.from_numpy(t).to(dev), launches))
+    return rows
+
+
+def mean_step_rows(step_inputs: dict, launches: int) -> list:
+    """gather_mean at the training step's two layer shapes: the kernel row,
+    and the scatter-add gradient against autograd through the plain
+    version."""
+    rows = []
+    for layer, (embed, idx, mask) in enumerate(step_inputs["gather_mean"],
+                                               start=1):
+        label = f"f32 training layer {layer}"
+        rows.append(kernel_row("gather_mean", label, embed, idx, mask,
+                               launches))
+        g = torch.randn(idx.shape[0], embed.shape[1],
+                        generator=torch.Generator().manual_seed(layer)
+                        ).to(embed.device)
+        grads = []
+        for fn in (agg.mean_aggregate, agg.mean_aggregate_plain):
+            leaf = embed.detach().clone().requires_grad_(True)
+            (fn(leaf, idx, mask) * g).sum().backward()
+            grads.append(leaf.grad)
+        err = check_close(f"gather_mean {label} gradient", grads[0],
+                          grads[1])
+        bwd_ms = cuda_ms(lambda: agg.mean_aggregate_backward(
+            g, idx, mask, embed.shape, embed.dtype), reps=20)
+        log(f"  gather_mean {label} backward (index_add_ scatter-add): "
+            f"gradient max_abs_err {err} against autograd through the "
+            f"plain version; {bwd_ms:.6f} ms")
+    return rows
+
+
+# ------------------------------------------------------------ CLI round trip
+
+def cli_round_trip(dev: torch.device) -> None:
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_bundles", "cli_plus_unsup")
+    argv = ["--dataSet", "powerlaw:2000:10000", "--learn_method",
+            "plus_unsup", "--epochs", "1", "--export", out, "--device",
+            str(dev), "--quiet"]
+    agg.reset_launches()
+    t0 = time.perf_counter()
+    trainer, best = cli.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    log(f"[cli] graphsage_torch.cli {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.3f} s; launches {launches}; best val "
+        f"F1 {trainer.max_vali_f1:.6f}")
+    assert launches["gather_mean"] > 0 and launches["pair_scores"] > 0
+    params, mcfg, _, meta = infer.load_bundle(out)
+    assert meta["params"] == "best-val", meta
+    flat_want = flatten_params(best["params"])
+    flat_got = flatten_params(params)
+    assert flat_want.keys() == flat_got.keys()
+    for key in flat_want:
+        np.testing.assert_array_equal(flat_got[key], flat_want[key])
+
+    ds = trainer.ds
+    pad = ds.graph.to_padded()
+    agg.reset_launches()
+    sess = infer.InferenceSession.from_bundle(out, ds.features, pad,
+                                              device=dev)
+    table = sess.embeddings()
+    pred = sess.predict(ds.val_nodes)
+    launches = dict(agg.LAUNCHES)
+    assert launches["gather_mean"] == 2, launches
+    want = infer.full_graph_embeddings(best["params"]["sage"], mcfg,
+                                       ds.features, pad, device=dev)
+    err = check_close("[cli] served table vs full_graph_embeddings",
+                      torch.from_numpy(table), torch.from_numpy(want))
+    f1 = micro_f1(ds.labels[ds.val_nodes], pred)
+    log(f"[cli] bundle params equal the best-val snapshot (epoch "
+        f"{best['epoch']}); served table vs full_graph_embeddings max abs "
+        f"error {err}; serving launches {launches}; served val micro-F1 "
+        f"{f1:.6f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # uniform negatives: "auto" would choose by the host's core count
+    os.environ["GS_EXACT_NEG_BUDGET_S"] = "0"
     return run(torch.device("cuda"))
 
 
@@ -368,12 +772,20 @@ def run(dev: torch.device) -> int:
         f"{sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    reused = build.library_path().exists()
-    lib_path = build.build()
-    build.load_library()
-    log(f"build: {lib_path.name} in {time.perf_counter() - t0:.3f} s"
-        f"{' (an existing build, reused)' if reused else ''}")
-    log(lib_path.with_suffix(".log").read_text().strip())
+    reused = all(build.library_path(name).exists() for name in build.SOURCES)
+    # the host engine (g++) builds beside the kernels (one nvcc each)
+    engine = concurrent.futures.ThreadPoolExecutor(1).submit(
+        native_build.build)
+    paths = build.build()
+    for name in build.SOURCES:
+        build.load_library(name)
+    log(f"build: {', '.join(p.name for p in paths.values())} in "
+        f"{time.perf_counter() - t0:.3f} s"
+        f"{' (existing builds, reused)' if reused else ''}")
+    for path in paths.values():
+        log(path.with_suffix(".log").read_text().strip())
+    log(f"build: host engine {engine.result().name} ready after "
+        f"{time.perf_counter() - t0:.3f} s")
     smi = nvidia_smi()
     log(f"card: {smi}")
 
@@ -399,8 +811,26 @@ def run(dev: torch.device) -> int:
                                             n_valid, dev)
         summaries.append(summary)
         rows.extend(kernel_rows)
-
+    del feats, pad
     log(json.dumps({"serving": summaries}))
+
+    train_ds = dataclasses.replace(ds,
+                                   train_nodes=ds.train_nodes[:TRAIN_NODES])
+    training = {method: train_method(method, train_ds, dev)
+                for method in ("plus_unsup", "sup")}
+    unsup = training["plus_unsup"]
+    step_inputs = capture_step_inputs(unsup["trainer"])
+    rows.extend(mean_step_rows(step_inputs,
+                               unsup["launches"]["gather_mean"]))
+    rows.extend(score_rows(step_inputs, unsup["launches"]["pair_scores"],
+                           dev))
+    log(json.dumps({"training": {
+        method: {"ms_per_step": v["ms_per_step"]}
+        for method, v in training.items()}}))
+    del training, unsup, step_inputs
+
+    cli_round_trip(dev)
+
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,168 @@
+"""Command-line training, the compact pipeline.
+
+Port of the compact path of ``graphsage_tpu/cli.py``, with the reference
+CLI's flags (reference src/main.py:12-27): ``--dataSet --agg_func --epochs
+--b_sz --seed --gcn --learn_method --unsup_loss --max_vali_f1 --name``
+(``--cuda`` is accepted and ignored; ``--device`` chooses).  Training runs
+on the card unless ``--device cpu`` is given.  ``--export DIR`` writes the
+best-val model as a serving bundle that ``graphsage_torch.infer`` loads.
+
+    python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 --epochs 2
+
+Not ported yet, and refused with the ROADMAP item that queues them: the
+other pipelines (``--pipeline cached|cached_dist|dist``, items 10 and 16),
+``--agg_func MAX|LSTM`` training (items 12, 13), bfloat16 training (item
+14), and HOCON ``--config`` files, checkpoints on disk and ``--resume``
+(item 8).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+_NOT_PORTED = {
+    "cached": "the cached pipeline (ROADMAP A item 10)",
+    "cached_dist": "the sharded cached pipeline (ROADMAP A item 16)",
+    "dist": "the edge-partitioned pipeline (ROADMAP A item 16)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="GraphSAGE training on the card (graphsage_torch)")
+    # reference-compatible flags (src/main.py:14-26)
+    p.add_argument("--dataSet", type=str, default="cora")
+    p.add_argument("--agg_func", type=str, default="MEAN",
+                   choices=["MEAN", "MAX", "LSTM"])
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--b_sz", type=int, default=20)
+    p.add_argument("--seed", type=int, default=824)
+    p.add_argument("--cuda", action="store_true",
+                   help="accepted for CLI compatibility; ignored (--device "
+                        "chooses)")
+    p.add_argument("--gcn", action="store_true")
+    p.add_argument("--learn_method", type=str, default="sup",
+                   choices=["sup", "unsup", "plus_unsup"])
+    p.add_argument("--unsup_loss", type=str, default="normal",
+                   choices=["normal", "margin"])
+    p.add_argument("--max_vali_f1", type=float, default=0)
+    p.add_argument("--name", type=str, default="debug")
+    p.add_argument("--config", type=str, default=None,
+                   help="HOCON experiment file (not ported yet)")
+    # framework flags
+    p.add_argument("--pipeline", type=str, default="compact",
+                   choices=["compact", "cached", "cached_dist", "dist"],
+                   help="compact = the per-step reference-parity path (the "
+                        "only one ported so far)")
+    p.add_argument("--fanout", type=int, default=10)
+    p.add_argument("--num_layers", type=int, default=2)
+    p.add_argument("--hidden", type=int, default=128)
+    p.add_argument("--lr", type=float, default=0.7)
+    p.add_argument("--clf_epochs", type=int, default=800)
+    p.add_argument("--resume", type=str, default=None,
+                   help="checkpoint to resume from (not ported yet)")
+    p.add_argument("--strict_clf_eval", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="re-embed val/test each classifier epoch like the "
+                        "reference (default); --no-strict_clf_eval scores "
+                        "on cached embeddings")
+    p.add_argument("--compute_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--data_root", type=str, default=None,
+                   help="dataset directory override")
+    p.add_argument("--export", type=str, default=None,
+                   help="after training, write the best-val model as a "
+                        "serving bundle to this directory")
+    p.add_argument("--device", type=str, default=None,
+                   help="torch device (default: the card; 'cpu' runs the "
+                        "plain versions)")
+    p.add_argument("--quiet", action="store_true")
+    p.add_argument("--metrics", type=str, default=None,
+                   help="path for jsonl structured metrics")
+    return p
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+def run(argv=None):
+    """What ``main`` runs: parse, train, export.  Returns the trainer and
+    the best-val snapshot ({"params", "epoch", "test_f1"}) that
+    ``--export`` ships."""
+    args = build_parser().parse_args(argv)
+    if args.pipeline != "compact":
+        raise NotImplementedError(f"--pipeline {args.pipeline}: "
+                                  f"{_NOT_PORTED[args.pipeline]} is not "
+                                  f"ported yet")
+    if args.config or args.resume:
+        raise NotImplementedError("--config and --resume are not ported yet "
+                                  "(ROADMAP A item 8)")
+
+    from graphsage_torch.convert import params_to_numpy
+    from graphsage_torch.data import load_dataset
+    from graphsage_torch.infer import export_bundle
+    from graphsage_torch.models import GraphSageConfig
+    from graphsage_torch.train import Trainer, TrainConfig
+
+    kw = {"root": args.data_root} if args.data_root else {}
+    ds = load_dataset(args.dataSet, seed=args.seed, **kw)
+    if ds.synthetic_features and not args.quiet:
+        print(f"NOTE: content file for {ds.name} absent; using synthesized "
+              "features over the real graph")
+
+    mcfg = GraphSageConfig(num_layers=args.num_layers,
+                           input_size=ds.feature_dim, out_size=args.hidden,
+                           gcn=args.gcn, agg_func=args.agg_func,
+                           compute_dtype=args.compute_dtype)
+    tcfg = TrainConfig(
+        learn_method=args.learn_method, unsup_loss=args.unsup_loss,
+        b_sz=args.b_sz, epochs=args.epochs, lr=args.lr, seed=args.seed,
+        fanout=args.fanout, clf_epochs=args.clf_epochs,
+        strict_clf_eval=args.strict_clf_eval, verbose=not args.quiet,
+        metrics_path=args.metrics)
+
+    # best-val params snapshot: checkpoint_fn fires exactly on val
+    # improvement, so the last snapshot is the model that reached
+    # max_vali_f1, which --export ships
+    best = {"params": None, "epoch": None, "test_f1": None}
+
+    def checkpoint_fn(trainer, test_f1):
+        best["params"] = params_to_numpy(trainer.params)
+        best["epoch"] = trainer.epoch
+        best["test_f1"] = float(test_f1)
+
+    trainer = Trainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
+                      device=args.device)
+    trainer.max_vali_f1 = args.max_vali_f1
+
+    if args.learn_method == "sup":
+        print("GraphSage with Supervised Learning")
+    elif args.learn_method == "plus_unsup":
+        print("GraphSage with Supervised Learning plus Net Unsupervised "
+              "Learning")
+    else:
+        print("GraphSage with Net Unsupervised Learning")
+
+    trainer.fit()
+    print(f"Best validation F1: {trainer.max_vali_f1:.4f}")
+    if args.export:
+        meta = {"dataset": ds.name, "name": args.name,
+                "best_val_f1": float(trainer.max_vali_f1),
+                "epoch": best["epoch"], "test_f1": best["test_f1"],
+                "params": "best-val"}
+        export_params = best["params"]
+        if export_params is None:  # no improvement was ever recorded
+            export_params = params_to_numpy(trainer.params)
+            meta["params"] = "final-epoch"
+        export_bundle(args.export, export_params, mcfg, ds.num_classes,
+                      meta=meta)
+        if not args.quiet:
+            print(f"exported serving bundle to {args.export} "
+                  f"({meta['params']} params)")
+    return trainer, best
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -38,7 +38,8 @@ def _to_numpy(x) -> np.ndarray:
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
             x = x.float()
-        return x.numpy()
+        # a copy: never a view of a live CPU tensor that SGD updates
+        return x.numpy().copy()
     return np.asarray(x)
 
 

@@ -1,4 +1,10 @@
-from graphsage_torch.models.graphsage import GraphSageConfig, init_graphsage
+from graphsage_torch.models.graphsage import (
+    Frontier,
+    GraphSageConfig,
+    graphsage_apply,
+    graphsage_apply_gathered,
+    init_graphsage,
+)
 from graphsage_torch.models.layers import (
     Classifier,
     GraphSage,
@@ -13,10 +19,13 @@ from graphsage_torch.models.layers import (
 
 __all__ = [
     "Classifier",
+    "Frontier",
     "GraphSage",
     "GraphSageConfig",
     "SageLayer",
     "classifier_apply",
+    "graphsage_apply",
+    "graphsage_apply_gathered",
     "init_classifier",
     "init_graphsage",
     "init_sage_layer",

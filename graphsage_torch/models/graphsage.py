@@ -1,18 +1,48 @@
-"""GraphSAGE model configuration and parameter init.
+"""GraphSAGE configuration, parameter init and the sampled encoder.
 
-Port of the configuration half of ``graphsage_tpu/models/graphsage.py``.
-``GraphSageConfig`` keeps the JAX package's fields and defaults, so a serving
-``bundle.json`` means the same model to both packages.  The sampled encoder
-(``Frontier``, ``graphsage_apply*``) comes with the training slice.
+Port of ``graphsage_tpu/models/graphsage.py``.  ``GraphSageConfig`` keeps
+the JAX package's fields and defaults, so a serving ``bundle.json`` means the
+same model to both packages.
+
+The sampled computation graph is a list of ``Frontier``s, fixed-shape index
+tables built by the host samplers (``graphsage_torch.sampler``), one per
+layer, bottom-up:
+
+  idx      [U_l, S] int32: slots index rows of the previous layer's
+           embedding matrix (layer 0: the gathered raw features);
+  mask     [U_l, S] float32: 1 for slots that take part in the aggregation
+           (the reference's sample-then-remove-self rule, take-all below the
+           fanout, and row padding; src/models.py:282-298);
+  self_idx [U_l] int32: the row of the previous matrix holding the node's
+           own features (src/models.py:271-275).
+
+Rows past the real union size are padding: idx/self_idx 0, mask 0.
+
+The encoder trains MEAN GraphSAGE in float32.  Every aggregation is
+``ops.aggregate.mean_aggregate`` (the ``gather_mean`` kernel on the card,
+with its scatter-add backward), whatever ``impl`` says; ``impl`` still
+decides the layer structure, as in the JAX package.  MAX and LSTM training
+raise (ROADMAP A items 12 and 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Sequence
 
 import torch
 
-from graphsage_torch.models.layers import init_sage_layer
+from graphsage_torch.models.layers import (init_sage_layer,
+                                           mean_pretransform,
+                                           sage_layer_apply)
+from graphsage_torch.ops.aggregate import mean_aggregate
+
+
+@dataclasses.dataclass(frozen=True)
+class Frontier:
+    idx: Any        # [U, S] int32
+    mask: Any       # [U, S] float32
+    self_idx: Any   # [U] int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +88,122 @@ def init_graphsage(generator: torch.Generator, cfg: GraphSageConfig,
         init_sage_layer(generator, cfg.layer_input_size(i), cfg.out_size,
                         gcn=cfg.gcn, dtype=dtype)
         for i in range(cfg.num_layers)]}
+
+
+def _check_trainable(cfg: GraphSageConfig) -> None:
+    if cfg.agg_func == "MAX":
+        raise NotImplementedError(
+            "MAX training is not ported yet (ROADMAP A item 12: the "
+            "gather_max backward); MAX serving is (graphsage_torch.infer)")
+    if cfg.agg_func == "LSTM":
+        raise NotImplementedError(
+            "LSTM aggregation is not ported yet (ROADMAP A item 13)")
+    if cfg.agg_func != "MEAN":
+        raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
+
+
+def _aggregate(cfg: GraphSageConfig, h: torch.Tensor,
+               frontier: Frontier) -> torch.Tensor:
+    """The layer's aggregation: MEAN, the only trainable one so far (the
+    public entry points refuse the others)."""
+    return mean_aggregate(h, frontier.idx, frontier.mask)
+
+
+def graphsage_apply(params: dict, cfg: GraphSageConfig, x0: torch.Tensor,
+                    frontiers: Sequence[Frontier]) -> torch.Tensor:
+    """Bottom-up encode (reference src/models.py:255-269).
+
+    x0: [U_0, D] raw-feature rows of the deepest union; frontiers[l] maps
+    layer-l rows onto layer-(l-1) rows.  Returns [U_L, out_size] in the top
+    frontier's row order."""
+    _check_trainable(cfg)
+    assert len(frontiers) == cfg.num_layers
+    h = x0
+    for layer, frontier in enumerate(frontiers):
+        h = _layer(cfg, params["layers"][layer], h, frontier)
+    return h
+
+
+def _layer(cfg: GraphSageConfig, layer_params: dict, h: torch.Tensor,
+           frontier: Frontier) -> torch.Tensor:
+    if _use_pretransform(cfg, h, frontier):
+        return _mean_pretransform_layer(cfg, layer_params, h, frontier)
+    agg = _aggregate(cfg, h, frontier)
+    self_feats = h[frontier.self_idx.long()]
+    return sage_layer_apply(layer_params, self_feats, agg, gcn=cfg.gcn)
+
+
+def graphsage_apply_gathered(params: dict, cfg: GraphSageConfig,
+                             feats: torch.Tensor, x0_ids: torch.Tensor,
+                             frontiers: Sequence[Frontier]) -> torch.Tensor:
+    """Like graphsage_apply, from the full feature table and the gather ids.
+
+    When the table has no more than twice the rows of the expanded frontier
+    (``n <= 2 * u0``, the JAX package's ``apply_table`` rule), layer 1
+    transforms the TABLE once ([N, D] x [D, 2H]) and every gather moves
+    H-wide rows instead of D-wide ones."""
+    _check_trainable(cfg)
+    f0 = frontiers[0]
+    u0 = x0_ids.shape[0]
+    n = feats.shape[0]
+    apply_table = (
+        cfg.agg_func == "MEAN" and cfg.mean_pretransform != "never"
+        and cfg.impl != "pallas"  # same rule as _use_pretransform
+        and (cfg.mean_pretransform == "always" or n <= 2 * u0))
+    if not apply_table:
+        x0 = feats[x0_ids.long()]
+        return graphsage_apply(params, cfg, x0, frontiers)
+
+    w = params["layers"][0]["weight"]
+    # compose index maps: frontier slots -> x0 rows -> table rows
+    x0_ids = x0_ids.long()
+    idx_t = x0_ids[f0.idx.long()].to(torch.int32)
+    self_t = x0_ids[f0.self_idx.long()]
+    if cfg.gcn:
+        h_agg = mean_pretransform(w, feats, gcn=True)            # [N, H]
+        h = torch.relu(mean_aggregate(h_agg, idx_t, f0.mask))
+    else:
+        # one [N, D] x [D, 2H] product; the aggregate reads the strided
+        # AGG half h_cat[:, H:] in place
+        h_cat = mean_pretransform(w, feats)                      # [N, 2H]
+        hdim = w.shape[0]
+        agg = mean_aggregate(h_cat[:, hdim:], idx_t, f0.mask)
+        h = torch.relu(agg + h_cat[:, :hdim][self_t])
+
+    for layer in range(1, cfg.num_layers):
+        h = _layer(cfg, params["layers"][layer], h, frontiers[layer])
+    return h
+
+
+def _use_pretransform(cfg: GraphSageConfig, h: torch.Tensor,
+                      frontier: Frontier) -> bool:
+    """The JAX package's rule (``graphsage.py:190-208``), verbatim."""
+    if cfg.agg_func != "MEAN" or cfg.mean_pretransform == "never":
+        return False
+    # an explicit impl="pallas" keeps the aggregate-then-transform layers
+    if cfg.impl == "pallas":
+        return False
+    if cfg.mean_pretransform == "always":
+        return True
+    m = h.shape[0]
+    u = frontier.idx.shape[0]
+    # FLOP-equal at m == u (non-gcn); the traffic win scales with D/H, so
+    # allow extra transform FLOPs when the feature dim is wide
+    d = h.shape[1]
+    width_bonus = 2 if d >= 4 * cfg.out_size else 1
+    return m <= 2 * u * width_bonus
+
+
+def _mean_pretransform_layer(cfg: GraphSageConfig, layer_params: dict,
+                             h: torch.Tensor,
+                             frontier: Frontier) -> torch.Tensor:
+    """relu(W [self || mean(neigh)]) as relu(mean((W_agg h)[neigh]) +
+    (W_self h)[self]), exact by the linearity of the mean."""
+    w = layer_params["weight"]                     # [H, 2D] (or [H, D] gcn)
+    if cfg.gcn:
+        h_agg = mean_pretransform(w, h, gcn=True)  # [M, H]
+        return torch.relu(mean_aggregate(h_agg, frontier.idx, frontier.mask))
+    h_cat = mean_pretransform(w, h)                # [M, 2H]
+    hdim = w.shape[0]
+    agg = mean_aggregate(h_cat[:, hdim:], frontier.idx, frontier.mask)
+    return torch.relu(agg + h_cat[:, :hdim][frontier.self_idx.long()])

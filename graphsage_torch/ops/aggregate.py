@@ -18,9 +18,16 @@ mask weights are taken in float32.  MEAN divides by ``max(sum(mask), 1)``, so
 a row with no valid slot gives 0.  MAX takes the elementwise max over the
 slots with ``mask > 0`` and gives 0 for a row with no such slot.
 
-The kernels are forward only for now: on CUDA, a call that autograd would
-have to differentiate raises.  Their backward (a scatter-add, as the JAX
-package's ``_pallas_mean_bwd`` is) comes with the training slice.
+MEAN has a gradient: ``mean_aggregate`` is a ``torch.autograd.Function``
+on both devices, whose backward is the scatter-add of the JAX package's
+``_pallas_mean_bwd`` (``graphsage_tpu/ops/pallas_aggregate.py:147-157``, an
+XLA scatter there, ``index_add_`` here).  The CPU takes the same Function
+with the plain forward, so the CPU tests exercise the backward the card
+runs.  MAX is forward only on the card: a ``max_aggregate`` call on CUDA
+that autograd would have to differentiate raises (ROADMAP A item 12).
+
+``pair_cosine`` is the per-pair cosine score of the unsupervised losses
+(``graphsage_tpu/ops/aggregate.py:74-87``), plain PyTorch.
 """
 
 from __future__ import annotations
@@ -29,10 +36,11 @@ import torch
 
 from graphsage_torch.ops import build
 
-# Launches of each CUDA kernel.  A wrapper adds one where it launches its
-# kernel and nowhere else; runs that must show they went through the kernels
-# set these to 0 before and read them after.
-LAUNCHES = {"gather_mean": 0, "gather_max": 0}
+# Launches of each CUDA kernel (``pair_scores`` is ops/sddmm.py's).  A
+# wrapper adds one where it launches its kernel and nowhere else; runs that
+# must show they went through the kernels set these to 0 before and read
+# them after.
+LAUNCHES = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -118,17 +126,12 @@ def _check_kernel_args(embed: torch.Tensor, idx: torch.Tensor,
 def _launch(name: str, symbol: str, embed: torch.Tensor, idx: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
     _check_kernel_args(embed, idx, mask)
-    if torch.is_grad_enabled() and (embed.requires_grad
-                                    or mask.requires_grad):
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel has no backward yet (ROADMAP: the "
-            f"training slice); call it under torch.no_grad()")
     u, s = idx.shape
     d = embed.shape[1]
     out = torch.empty((u, d), dtype=embed.dtype, device=embed.device)
     if u == 0 or d == 0:
         return out
-    lib = build.load_library()
+    lib = build.load_library("aggregate")
     stream = torch.cuda.current_stream(embed.device).cuda_stream
     rc = getattr(lib, symbol)(
         _DTYPE_CODES[embed.dtype], embed.device.index, embed.data_ptr(),
@@ -141,20 +144,73 @@ def _launch(name: str, symbol: str, embed: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+class _GatherMean(torch.autograd.Function):
+    """Masked mean with the scatter-add backward of ``_pallas_mean_bwd``.
+    Gradients flow to ``embed`` only (idx and mask are sampling output)."""
+
+    @staticmethod
+    def forward(ctx, embed, idx, mask):
+        ctx.save_for_backward(idx, mask)
+        ctx.embed_shape = embed.shape
+        ctx.embed_dtype = embed.dtype
+        if not embed.is_cuda:
+            return mean_aggregate_plain(embed, idx, mask)
+        return _launch("gather_mean", "gs_gather_mean", embed, idx, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mask = ctx.saved_tensors
+        return mean_aggregate_backward(g, idx, mask, ctx.embed_shape,
+                                       ctx.embed_dtype), None, None
+
+
+def mean_aggregate_backward(g: torch.Tensor, idx: torch.Tensor,
+                            mask: torch.Tensor, embed_shape,
+                            embed_dtype: torch.dtype) -> torch.Tensor:
+    """d(embed) of the masked mean: each slot's row receives
+    ``g[u] * mask[u, s] / max(sum_s mask[u, s], 1)``, accumulated into a
+    zero [M, D] in the embed dtype.  On the card ``index_add_`` adds with
+    atomics, so the order of the sums (and the last bit) varies by run."""
+    cnt = mask.float().sum(dim=1, keepdim=True).clamp_min(1.0)
+    w = (mask.float() / cnt).to(g.dtype)                         # [U, S]
+    contrib = (g[:, None, :] * w[:, :, None]).to(embed_dtype)    # [U, S, D]
+    d_embed = torch.zeros(embed_shape, dtype=embed_dtype, device=g.device)
+    return d_embed.index_add_(0, idx.reshape(-1).long(),
+                              contrib.reshape(-1, embed_shape[1]))
+
+
 def mean_aggregate(embed: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
-    """Masked mean.  CPU tensors take :func:`mean_aggregate_plain`; CUDA
-    tensors launch the ``gather_mean`` kernel (see :func:`_check_kernel_args`
-    for what it takes)."""
-    if not embed.is_cuda:
-        return mean_aggregate_plain(embed, idx, mask)
-    return _launch("gather_mean", "gs_gather_mean", embed, idx, mask)
+    """Masked mean, differentiable in ``embed``.  CPU tensors take
+    :func:`mean_aggregate_plain`; CUDA tensors launch the ``gather_mean``
+    kernel (see :func:`_check_kernel_args` for what it takes).  The
+    backward is :func:`mean_aggregate_backward` on both."""
+    return _GatherMean.apply(embed, idx, mask)
 
 
 def max_aggregate(embed: torch.Tensor, idx: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Masked max.  CPU tensors take :func:`max_aggregate_plain`; CUDA
-    tensors launch the ``gather_max`` kernel."""
+    tensors launch the ``gather_max`` kernel, which has no backward yet
+    (ROADMAP A item 12): a call autograd would differentiate raises."""
     if not embed.is_cuda:
         return max_aggregate_plain(embed, idx, mask)
+    if torch.is_grad_enabled() and (embed.requires_grad
+                                    or mask.requires_grad):
+        raise NotImplementedError(
+            "gather_max: the CUDA kernel has no backward yet (ROADMAP A "
+            "item 12, MAX training); call it under torch.no_grad()")
     return _launch("gather_max", "gs_gather_max", embed, idx, mask)
+
+
+def pair_cosine(embed: torch.Tensor, p_idx: torch.Tensor,
+                q_idx: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Cosine similarity of embedding pairs, in float32, with each norm
+    clamped at ``eps`` (``F.cosine_similarity`` semantics, reference
+    src/models.py:82,90).  p_idx/q_idx: int index tensors of one shape into
+    embed's rows; returns that shape."""
+    a = embed[p_idx.long()].float()
+    b = embed[q_idx.long()].float()
+    na = torch.linalg.vector_norm(a, dim=-1).clamp_min(eps)
+    nb = torch.linalg.vector_norm(b, dim=-1).clamp_min(eps)
+    return (a * b).sum(dim=-1) / (na * nb)

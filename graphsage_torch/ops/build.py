@@ -1,16 +1,18 @@
 """Build and load the port's CUDA kernels, at first use.
 
-The kernels are compiled from the repository's own sources
-(``graphsage_torch/csrc/*.cu``) with ``nvcc`` into a shared library with a
-plain C interface, loaded with ``ctypes``:
+Each kernel source (``graphsage_torch/csrc/*.cu``) is compiled with ``nvcc``
+into a shared library of its own with a plain C interface, loaded with
+``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/graphsage_torch/libgs_kernels-<hash>.so
+         -Xcompiler -fPIC -o build/graphsage_torch/libgs_<name>-<hash>.so
 
-The library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and a current build is reused.  ``nvcc``'s report
-(``-Xptxas -v``: registers, shared memory and spills per kernel) is kept
-beside it as ``.log``.  Nothing here runs at import; a failed build raises.
+All sources are compiled at once, one ``nvcc`` process each, started
+together.  A library's name carries a hash of its source and the flags, so
+an edited source is rebuilt and a current build is reused.  ``nvcc``'s
+report (``-Xptxas -v``: registers, shared memory and spills per kernel) is
+kept beside each library as ``.log``.  Nothing here runs at import; a failed
+build raises.
 """
 
 from __future__ import annotations
@@ -24,24 +26,40 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "aggregate.cu",)
+SOURCES = {
+    "aggregate": _PKG / "csrc" / "aggregate.cu",
+    "sddmm": _PKG / "csrc" / "sddmm.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "graphsage_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the C entry points and their ctypes signatures (graphsage_torch/csrc):
-# (dtype, device, embed, embed_stride, idx, mask, out, U, S, D, stream)
+# the C entry points of each library and their ctypes signatures
+# gather: (dtype, device, embed, embed_stride, idx, mask, out, U, S, D,
+#          stream)
 _AGG_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# scores: (dtype, device, emb, emb_stride, target_rows, out, B, U, H, eps,
+#          stream)
+_SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
 _SIGNATURES = {
-    "gs_gather_mean": (_AGG_ARGS, ctypes.c_int),
-    "gs_gather_max": (_AGG_ARGS, ctypes.c_int),
-    "gs_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    "aggregate": {
+        "gs_gather_mean": (_AGG_ARGS, ctypes.c_int),
+        "gs_gather_max": (_AGG_ARGS, ctypes.c_int),
+        "gs_error_string": _ERROR_STRING,
+    },
+    "sddmm": {
+        "gs_pair_scores": (_SCORE_ARGS, ctypes.c_int),
+        "gs_error_string": _ERROR_STRING,
+    },
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_libs: dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -58,42 +76,56 @@ def nvcc_path() -> str:
         "toolkit is needed to build graphsage_torch's kernels")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256()
-    for src in SOURCES:
-        digest.update(src.read_bytes())
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libgs_kernels-{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libgs_{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a current build exists; return the .so."""
-    out = library_path()
-    if out.exists():
-        return out
+def build() -> dict[str, Path]:
+    """Compile every source that has no current build, one ``nvcc`` each,
+    all running at once; return {name: .so path}."""
+    paths = {name: library_path(name) for name in SOURCES}
+    missing = [name for name, path in paths.items() if not path.exists()]
+    if not missing:
+        return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builds never see
-    # a half-written library
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"kernel build failed (nvcc rc={proc.returncode})"
-                           f": {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    nvcc = nvcc_path()
+    jobs = []
+    for name in missing:
+        out = paths[name]
+        # compile to a private name, then rename: concurrent builds never
+        # see a half-written library
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((out, tmp, cmd, proc))
+    failed = []
+    for out, tmp, cmd, proc in jobs:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc rc={proc.returncode}: {' '.join(cmd)}\n"
+                          f"{report}")
+            continue
+        out.with_suffix(".log").write_text(report)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source version) and load the kernels' library."""
-    global _lib
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded library of source ``name`` (a key of :data:`SOURCES`).
+    The first call builds every source, so they compile in parallel."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = restype
-            _lib = lib
-        return _lib
+        if not _libs:
+            for lib_name, path in build().items():
+                lib = ctypes.CDLL(str(path))
+                for fn_name, (argtypes, restype) in _SIGNATURES[
+                        lib_name].items():
+                    fn = getattr(lib, fn_name)
+                    fn.argtypes = argtypes
+                    fn.restype = restype
+                _libs[lib_name] = lib
+        return _libs[name]

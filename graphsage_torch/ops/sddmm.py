@@ -1,0 +1,182 @@
+"""Pairwise cosine scores for the unsupervised losses.
+
+Port of ``graphsage_tpu/ops/sddmm.py``.  Every pair's left side is one of
+the B batch targets, so the scores come as a dense block
+
+    scores[b, u] = cos(emb[target_rows[b]], emb[u])      # [B, U]
+
+from which the losses sample their pairs (``sample_scores``), or, where the
+block would be mostly waste, per pair (``gathered_pair_cosines``);
+``pair_loss_scores`` chooses by the JAX package's byte model.
+
+- ``dense_pair_scores``: the plain PyTorch block, on any device; the CPU
+  path and the reference the kernel is held against on the card.
+- ``pair_scores_kernel``: the hand-written CUDA kernel
+  (``graphsage_torch/csrc/sddmm.cu``), a CUDA tensor only.
+- ``PairScores``: the block with the analytic backward of the JAX package's
+  ``_pallas_scores_bwd`` (``sddmm.py:63-75``).  Its forward is the kernel on
+  a CUDA tensor and the plain version on a CPU tensor.
+- ``pair_scores``: the dispatcher (``sddmm.py:81-92``): ``PairScores`` on
+  the card, where the JAX package takes its Pallas kernel on the TPU; the
+  plain version, differentiated by autograd, elsewhere.
+
+Norms and products run in float32, each norm clamped at ``eps``; the block
+comes back in the emb dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphsage_torch.ops import build
+from graphsage_torch.ops.aggregate import _DTYPE_CODES, _INT_MAX, LAUNCHES
+
+_EPS = 1e-8
+_MAX_B = 65535 * 32          # the kernel's grid: 65535 tiles of 32 targets
+
+
+def _unit_rows(emb: torch.Tensor, eps: float):
+    """(unit, norms): emb's rows in float32 divided by max(|row|, eps)."""
+    emb32 = emb.float()
+    norms = torch.linalg.vector_norm(emb32, dim=-1,
+                                     keepdim=True).clamp_min(eps)
+    return emb32 / norms, norms
+
+
+def dense_pair_scores(emb: torch.Tensor, target_rows: torch.Tensor,
+                      eps: float = _EPS) -> torch.Tensor:
+    """[U, H] x [B] -> [B, U] cosine scores, in emb's dtype (plain)."""
+    unit, _ = _unit_rows(emb, eps)
+    targets = unit[target_rows.long()]                        # [B, H]
+    return torch.matmul(targets, unit.T).to(emb.dtype)
+
+
+def _check_kernel_args(emb: torch.Tensor, target_rows: torch.Tensor) -> None:
+    """What the kernel takes: emb [U, H] float32/bfloat16 with unit column
+    stride (any row stride), target_rows [B] int32 contiguous, both on one
+    CUDA device."""
+    if emb.dim() != 2 or target_rows.dim() != 1:
+        raise ValueError(f"expected emb [U, H] and target_rows [B]; got "
+                         f"{tuple(emb.shape)}, {tuple(target_rows.shape)}")
+    if emb.dtype not in _DTYPE_CODES:
+        raise TypeError(f"emb must be float32 or bfloat16, not {emb.dtype}")
+    if target_rows.dtype != torch.int32:
+        raise TypeError(f"target_rows must be int32, not "
+                        f"{target_rows.dtype}")
+    if emb.shape[1] > 1 and emb.stride(1) != 1:
+        raise ValueError(f"emb needs unit column stride, has strides "
+                         f"{emb.stride()}")
+    if not target_rows.is_contiguous():
+        raise ValueError("target_rows must be contiguous")
+    if max(*emb.shape, emb.stride(0)) > _INT_MAX:
+        raise ValueError("U and H must each fit in 32 bits")
+    if target_rows.shape[0] > _MAX_B:
+        raise ValueError(f"at most {_MAX_B} targets per call")
+    if not (emb.is_cuda and target_rows.device == emb.device):
+        raise ValueError(f"emb and target_rows must lie on one CUDA device; "
+                         f"got {emb.device}, {target_rows.device}")
+
+
+def pair_scores_kernel(emb: torch.Tensor, target_rows: torch.Tensor,
+                       eps: float = _EPS) -> torch.Tensor:
+    """Launch the ``pair_scores`` CUDA kernel: [U, H] x [B] -> [B, U] in
+    emb's dtype.  Forward only; ``PairScores`` gives it a gradient."""
+    _check_kernel_args(emb, target_rows)
+    u, h = emb.shape
+    b = target_rows.shape[0]
+    out = torch.empty((b, u), dtype=emb.dtype, device=emb.device)
+    if b == 0 or u == 0:
+        return out
+    lib = build.load_library("sddmm")
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    rc = lib.gs_pair_scores(_DTYPE_CODES[emb.dtype], emb.device.index,
+                            emb.data_ptr(), emb.stride(0),
+                            target_rows.data_ptr(), out.data_ptr(), b, u, h,
+                            eps, stream)
+    if rc != 0:
+        raise RuntimeError(f"pair_scores launch failed: CUDA error {rc} "
+                           f"({lib.gs_error_string(rc).decode()})")
+    LAUNCHES["pair_scores"] += 1
+    return out
+
+
+def pair_scores_backward(g: torch.Tensor, emb: torch.Tensor,
+                         target_rows: torch.Tensor,
+                         eps: float = _EPS) -> torch.Tensor:
+    """d(emb) of the score block (``_pallas_scores_bwd``): with
+    S = unit[t] @ unit.T, d_unit = g.T @ unit[t] plus g @ unit added into
+    the target rows, then through the row normalisation
+    d_emb = (d_unit - unit * <d_unit, unit>) / norms.  In float32; returned
+    in emb's dtype."""
+    unit, norms = _unit_rows(emb, eps)
+    t = target_rows.long()
+    g = g.float()
+    d_unit = torch.matmul(g.T, unit[t])                      # [U, H]
+    d_unit.index_add_(0, t, torch.matmul(g, unit))           # [B, H]
+    proj = (d_unit * unit).sum(dim=-1, keepdim=True)
+    return ((d_unit - unit * proj) / norms).to(emb.dtype)
+
+
+class PairScores(torch.autograd.Function):
+    """The score block with the analytic backward; the gradient flows to
+    ``emb`` only."""
+
+    @staticmethod
+    def forward(ctx, emb, target_rows, eps=_EPS):
+        ctx.save_for_backward(emb, target_rows)
+        ctx.eps = eps
+        if not emb.is_cuda:
+            return dense_pair_scores(emb, target_rows, eps)
+        return pair_scores_kernel(emb, target_rows, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        emb, target_rows = ctx.saved_tensors
+        return (pair_scores_backward(g, emb, target_rows, ctx.eps), None,
+                None)
+
+
+def pair_scores(emb: torch.Tensor, target_rows: torch.Tensor,
+                eps: float = _EPS) -> torch.Tensor:
+    """The [B, U] score block: the kernel with the analytic backward on the
+    card, the plain version elsewhere."""
+    if emb.is_cuda:
+        return PairScores.apply(emb, target_rows, eps)
+    return dense_pair_scores(emb, target_rows, eps)
+
+
+def sample_scores(scores: torch.Tensor, q_idx: torch.Tensor) -> torch.Tensor:
+    """Per-pair scalars out of the block: [B, U] x [B, P] -> [B, P]."""
+    return torch.gather(scores, 1, q_idx.long())
+
+
+def gathered_pair_cosines(emb: torch.Tensor, target_rows: torch.Tensor,
+                          pos_q: torch.Tensor, neg_q: torch.Tensor,
+                          eps: float = _EPS):
+    """Per-pair cosines without the [B, U] block: normalise once, gather the
+    pair rows, batched dot.  [U, H] x [B] x [B, P] x [B, M] ->
+    ([B, P], [B, M]) in emb's dtype."""
+    unit, _ = _unit_rows(emb, eps)
+    t = unit[target_rows.long()]                               # [B, H]
+    pos = unit[pos_q.long()]                                   # [B, P, H]
+    neg = unit[neg_q.long()]                                   # [B, M, H]
+    pos_cos = torch.einsum("bh,bph->bp", t, pos)
+    neg_cos = torch.einsum("bh,bmh->bm", t, neg)
+    return pos_cos.to(emb.dtype), neg_cos.to(emb.dtype)
+
+
+def pair_loss_scores(emb: torch.Tensor, target_rows: torch.Tensor,
+                     pos_q: torch.Tensor, neg_q: torch.Tensor,
+                     eps: float = _EPS):
+    """Per-pair cosines for the losses: the dense block when it is cheap
+    (small B * U, the compact pipeline's batches), the gathered form when
+    the block would be mostly waste.  The crossover is the JAX package's
+    byte model (``sddmm.py:149``), kept as it is for parity: block traffic
+    3*B*U against 3*pairs*H + U*H."""
+    b = target_rows.shape[0]
+    u, h = emb.shape
+    n_pairs = pos_q.shape[0] * pos_q.shape[1] + neg_q.shape[0] * neg_q.shape[1]
+    if 3 * b * u <= 3 * n_pairs * h + u * h:
+        scores = pair_scores(emb, target_rows, eps=eps)
+        return sample_scores(scores, pos_q), sample_scores(scores, neg_q)
+    return gathered_pair_cosines(emb, target_rows, pos_q, neg_q, eps=eps)

@@ -1,0 +1,42 @@
+"""SGD with per-model global-norm gradient clipping.
+
+Port of ``graphsage_tpu/train/optim.py``.  Reference: plain
+``torch.optim.SGD`` (lr 0.7 joint / 0.5 classifier-only, src/utils.py:136,
+82) after ``clip_grad_norm_(model.parameters(), 5)`` applied **per model**
+(src/utils.py:185-186, 106).  Parameters are pytrees (nested dicts and
+lists) of leaf tensors; the scale stays on the device (no host sync).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in float32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+
+
+def clip_by_global_norm(grads: list[torch.Tensor],
+                        max_norm: float) -> list[torch.Tensor]:
+    """``torch.nn.utils.clip_grad_norm_`` semantics: every gradient times
+    min(1, max_norm / (norm + 1e-6))."""
+    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
+    return [g * scale.to(g.dtype) for g in grads]
+
+
+@torch.no_grad()
+def sgd_update(params: list[torch.Tensor], grads: list[torch.Tensor],
+               lr: float) -> None:
+    """p <- p - lr * g, in place (the product rounded first, as the JAX
+    package's ``p - lr * g``)."""
+    for p, g in zip(params, grads):
+        p.sub_(lr * g)

@@ -230,6 +230,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import graphsage_torch, graphsage_torch.infer, "
         "graphsage_torch.convert, graphsage_torch.ops.build, "
         "graphsage_torch.train.metrics, graphsage_torch.data\n"
+        "import graphsage_torch.cli, graphsage_torch.train.trainer, "
+        "graphsage_torch.train.optim, graphsage_torch.sampler, "
+        "graphsage_torch.sampler.compact, graphsage_torch.sampler.pairs, "
+        "graphsage_torch.native, graphsage_torch.native.build, "
+        "graphsage_torch.ops.sddmm, graphsage_torch.losses, "
+        "graphsage_torch.utils, graphsage_torch.utils.obs, "
+        "graphsage_torch.utils.prefetch, graphsage_torch.models.graphsage\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n")

@@ -1,5 +1,5 @@
-"""The CUDA kernels of graphsage_torch.ops.aggregate against their plain
-versions, and what the kernel wrappers refuse.
+"""The CUDA kernels of graphsage_torch.ops.aggregate and .ops.sddmm against
+their plain versions, and what the kernel wrappers refuse.
 
 This file imports no JAX, so that it also runs on a machine with a card and
 no JAX.  There the ``gpu`` tests run; elsewhere they skip:
@@ -10,6 +10,12 @@ no JAX.  There the ``gpu`` tests run; elsewhere they skip:
 
 Tolerances on the card: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps
 (the kernel and the plain version may sum in different orders); MAX exact.
+Pair scores in bfloat16: within 2 ulps plus 1e-5, because both versions sum
+in float32 in other orders and round once, and near 0, where a dot product
+cancels, a float32 difference of ~1e-5 is many bf16 ulps.
+Gradients (gather-mean's scatter-add, the score block's analytic backward)
+against autograd through the plain versions: float32 rtol=atol=1e-5
+(``index_add_`` adds with atomics, in no fixed order).
 """
 
 import numpy as np
@@ -18,6 +24,7 @@ import torch
 
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.ops import build
+from graphsage_torch.ops import sddmm
 
 CASES = {
     "random": dict(u=37, s=11, m=53, d=19),
@@ -76,14 +83,18 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
                        agg.max_aggregate_plain(e, i, m))
     assert agg.LAUNCHES == before
     agg.reset_launches()
-    assert agg.LAUNCHES == {"gather_mean": 0, "gather_max": 0}
+    assert agg.LAUNCHES == {"gather_mean": 0, "gather_max": 0,
+                            "pair_scores": 0}
 
 
 def test_build_targets_hopper_into_the_build_directory():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    path = build.library_path()
-    assert path.parent == build.BUILD_DIR and path.suffix == ".so"
-    assert path.parent.parts[-2:] == ("build", "graphsage_torch")
+    assert set(build.SOURCES) == {"aggregate", "sddmm"}
+    for name in build.SOURCES:
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR and path.suffix == ".so"
+        assert path.parent.parts[-2:] == ("build", "graphsage_torch")
+        assert path.name.startswith(f"libgs_{name}-")
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
@@ -101,12 +112,13 @@ def _card():
     return torch.device("cuda")
 
 
-def _assert_close(got, want):
+def _assert_close(got, want, bf16_atol=0.0):
     assert got.dtype == want.dtype and got.shape == want.shape
     if want.dtype == torch.bfloat16:
         mag = want.float().abs().clamp_min(2.0**-126)
         ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
-        assert ((got.float() - want.float()).abs() <= 2 * ulp).all()
+        assert ((got.float() - want.float()).abs()
+                <= 2 * ulp + bf16_atol).all()
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
@@ -160,12 +172,129 @@ def test_empty_batch_launches_nothing_on_card():
 
 @pytest.mark.gpu
 def test_kernel_refuses_autograd_on_card():
+    """MAX has no backward on the card yet and refuses; MEAN gives one."""
     dev = _card()
     embed, idx, mask = _case("random")
     e = torch.from_numpy(embed).to(dev).requires_grad_(True)
+    i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
     with pytest.raises(NotImplementedError, match="backward"):
-        agg.mean_aggregate(e, torch.from_numpy(idx).to(dev),
-                           torch.from_numpy(mask).to(dev))
+        agg.max_aggregate(e, i, m)
     with torch.no_grad():
-        agg.mean_aggregate(e, torch.from_numpy(idx).to(dev),
-                           torch.from_numpy(mask).to(dev))
+        agg.max_aggregate(e, i, m)
+    agg.mean_aggregate(e, i, m).sum().backward()
+    assert e.grad is not None and e.grad.shape == e.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "empty_rows", "many_slots"])
+def test_gather_mean_backward_on_card(case):
+    """The Function's scatter-add gradient against autograd through the
+    plain version, on the card, also through a strided view."""
+    dev = _card()
+    embed, idx, mask = _case(case, seed=2)
+    i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
+    g = torch.randn(idx.shape[0], embed.shape[1],
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    wide = torch.from_numpy(np.concatenate([embed, embed], axis=1)).to(dev)
+    before = agg.LAUNCHES["gather_mean"]
+    grads = []
+    for fn in (agg.mean_aggregate, agg.mean_aggregate_plain):
+        w = wide.clone().requires_grad_(True)
+        (fn(w[:, embed.shape[1]:], i, m) * g).sum().backward()
+        grads.append(w.grad)
+    assert agg.LAUNCHES["gather_mean"] == before + 1   # the forward alone
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    assert not grads[0][:, :embed.shape[1]].any()
+
+
+# ------------------------------------------------------------ pair scores
+
+SCORE_CASES = {
+    "ragged": dict(u=1000, h=100, b=3, zero_rows=(0, 17, 999)),
+    "tiny_b": dict(u=4096, h=128, b=20, zero_rows=()),
+    "one_tile": dict(u=50, h=7, b=1, zero_rows=(4,)),
+    "many_targets": dict(u=300, h=33, b=70, zero_rows=(5,)),
+    "microbench": dict(u=2048, h=128, b=512, zero_rows=()),
+}
+
+
+def _score_case(name, seed=0):
+    c = SCORE_CASES[name]
+    rng = np.random.RandomState(seed)
+    emb = rng.randn(c["u"], c["h"]).astype(np.float32)
+    emb[list(c["zero_rows"])] = 0.0
+    t = rng.randint(0, c["u"], c["b"]).astype(np.int32)
+    if c["zero_rows"]:
+        t[0] = c["zero_rows"][0]      # a target of zero norm
+    return emb, t
+
+
+@pytest.mark.parametrize("args,error,match", [
+    (dict(emb=torch.zeros(10, 6), target_rows=torch.zeros(3,
+                                                          dtype=torch.int64)),
+     TypeError, "target_rows"),
+    (dict(emb=torch.zeros(10, 6, dtype=torch.float16),
+          target_rows=torch.zeros(3, dtype=torch.int32)), TypeError, "emb"),
+    (dict(emb=torch.zeros(6, 10).T,
+          target_rows=torch.zeros(3, dtype=torch.int32)), ValueError,
+     "column stride"),
+    (dict(emb=torch.zeros(10, 6),
+          target_rows=torch.zeros(3, 2, dtype=torch.int32)), ValueError,
+     "expected"),
+    (dict(emb=torch.zeros(10, 6),
+          target_rows=torch.zeros(3, dtype=torch.int32)), ValueError,
+     "CUDA device"),
+], ids=["targets-int64", "emb-f16", "emb-strided-cols", "targets-2d",
+        "cpu-tensors"])
+def test_score_wrapper_refuses_what_the_kernel_does_not_take(args, error,
+                                                             match):
+    with pytest.raises(error, match=match):
+        sddmm._check_kernel_args(**args)
+
+
+def test_score_library_builds_beside_the_aggregate_library():
+    assert set(build._SIGNATURES["sddmm"]) == {"gs_pair_scores",
+                                               "gs_error_string"}
+    assert build.library_path("sddmm") != build.library_path("aggregate")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCORE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scores_kernel_matches_plain_on_card(dtype, case):
+    dev = _card()
+    emb, t = _score_case(case)
+    e = torch.from_numpy(emb).to(dev, dtype)
+    tr = torch.from_numpy(t).to(dev)
+    before = agg.LAUNCHES["pair_scores"]
+    got = sddmm.pair_scores_kernel(e, tr)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["pair_scores"] == before + 1
+    _assert_close(got, sddmm.dense_pair_scores(e, tr), bf16_atol=1e-5)
+    zero = list(SCORE_CASES[case]["zero_rows"])
+    if zero:
+        assert not got[:, zero].any() and not got[0].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "tiny_b"])
+def test_pair_scores_gradient_on_card(case):
+    """PairScores (the kernel forward, the analytic backward) against
+    autograd through the plain version, on a strided view."""
+    dev = _card()
+    emb, t = _score_case(case, seed=1)
+    tr = torch.from_numpy(t).to(dev)
+    g = torch.randn(len(t), emb.shape[0],
+                    generator=torch.Generator().manual_seed(4)).to(dev)
+    wide = torch.from_numpy(np.concatenate([emb, emb], axis=1)).to(dev)
+    h = emb.shape[1]
+    outs, grads = [], []
+    for fn in (sddmm.pair_scores, sddmm.dense_pair_scores):
+        w = wide.clone().requires_grad_(True)
+        out = fn(w[:, h:], tr)
+        (out * g).sum().backward()
+        outs.append(out.detach())
+        grads.append(w.grad)
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    assert not grads[0][:, :h].any()
