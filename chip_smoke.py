@@ -60,10 +60,42 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (graphsage_torch.cli.run, what ``main`` runs); the bundle's params equal
    the trainer's best-val snapshot exactly; InferenceSession.from_bundle
    serves it, its table equal to infer.full_graph_embeddings of those
-   params; val micro-F1 printed.
+   params; val micro-F1 printed.  Then the CLI with ``--pipeline cached
+   --table_cap 8`` trains plus_unsup for two epochs on the card, through
+   gather_rows, gather_mean and pair_scores.
+7. Cached training at full width (``--pipeline cached``, CachedTrainer) on
+   the same graph and features, table_cap 32 (``RandomState(824)``), 2
+   layers, hidden 128, fanout 10, lr 0.7, seed 824, float32, three
+   configurations:
+   (a) sup MEAN, plain batches of 32768 over the whole train split (2 steps
+       an epoch, the tail wrap-padded and masked), 3 epochs with
+       refresh_every 2: the full-table layer-1 branch;
+   (b) sup MAX gcn, plain batches of 512, the train split cut to its first
+       5,120 nodes (10 steps): the per-occurrence branch, gather_max in the
+       refresh;
+   (c) plus_unsup MEAN, extended batches of 20, the train split cut to
+       1,000 nodes (50 steps), uniform negatives: the full-table branch and
+       the pair_scores block.
+   For each: launch counts set to 0, then CachedTrainer.fit, every step,
+   refresh and sampler draw recorded; counts read and held equal to the
+   counts predicted from the code; the first refresh against its plain
+   version on the same samples (MAX exact); every step again through the
+   plain versions in lockstep (from the kernel run's params, cache and
+   draws of that step); refresh_ms (median of 5, min, max); ms_per_step
+   (median of 20 steps on one cache, min, max); the device time by kernel
+   and the idle share over one epoch (torch.profiler); val F1.  Then
+   gather_mean / gather_max kernel rows at the refresh shape (idx [100000,
+   10] over [100000, 602]) and gather_rows rows at (a)'s full-table and
+   (b)'s per-occurrence gathers, equal to index_select bit for bit.
+8. The port's microbench (graphsage_torch.microbench) at
+   tools/pallas_microbench.py's shapes: row gather, gather+mean,
+   scatter-add (unsorted and presorted) and the [512 x 2048] score block;
+   its row gather (45,056 x 11 ids over [100000, 128], equal to
+   index_select bit for bit) is gather_rows' kernel row at that shape.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
-reference value (the two versions may sum in different orders); MAX exact;
+reference value (the two versions may sum in different orders); MAX and the
+row gather exact;
 bfloat16 pair scores within 2 ulps plus 1e-5 (SCORES_BF16_ATOL).
 Gradients: float32 rtol=atol=1e-5 (index_add_ adds with atomics, in no
 fixed order).  Training, kernels against plain versions in lockstep: step
@@ -92,28 +124,32 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graphsage_torch import cli, infer
+from graphsage_torch import cli, infer, microbench
 from graphsage_torch.convert import flatten_params
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
+from graphsage_torch.microbench import F32_OPS_PER_S, HBM_BYTES_PER_S, cuda_ms
 from graphsage_torch.models import (GraphSageConfig, graphsage,
                                     init_classifier, init_graphsage)
 from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
-from graphsage_torch.ops import build, sddmm
-from graphsage_torch.train import Trainer, TrainConfig, micro_f1
+from graphsage_torch.ops import build, gather, sddmm
+from graphsage_torch.sampler.compact import _bucket
+from graphsage_torch.train import (CachedTrainer, Trainer, TrainConfig,
+                                   cached, micro_f1)
 from graphsage_torch.train.optim import tree_leaves
+from graphsage_torch.train.trainer import _leaf_params
 
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
-F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 NODES, EDGES, FEATS, CLASSES, WIDTH, HIDDEN = (100_000, 1_000_000, 602, 16,
                                                32, 128)
 CONFIGS = (("MEAN", "float32"), ("MEAN", "bfloat16"), ("MAX", "bfloat16"))
 SOURCE = "graphsage_torch/csrc/aggregate.cu"
 SCORE_SOURCE = "graphsage_torch/csrc/sddmm.cu"
+GATHER_SOURCE = "graphsage_torch/csrc/gather.cu"
 REPLACES = {"gather_mean": "graphsage_tpu/ops/pallas_aggregate.py:60",
             "gather_max": "graphsage_tpu/ops/pallas_aggregate.py:76",
-            "pair_scores": "graphsage_tpu/ops/sddmm.py:156"}
+            "pair_scores": "graphsage_tpu/ops/sddmm.py:156",
+            "gather_rows": "tools/pallas_microbench.py:87"}
 TRAIN_NODES, B_SZ, LR, FANOUT, SEED = 1000, 20, 0.7, 10, 824
 # kernels against plain versions, step by step from the same params (see
 # train_method): the pair-score kernel sums in another order than
@@ -162,21 +198,6 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
         raise AssertionError(f"{name}: max abs error {err} outside "
                              f"tolerance")
     return err
-
-
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Mean device time of fn() over reps back-to-back calls (warm)."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 @contextlib.contextmanager
@@ -323,7 +344,8 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
     busy = sum(t for t, _, _ in rows) / 1e3
     log(f"  profile: device busy {busy:.6f} ms of {what} "
         f"{wall_ms:.6f} (idle share {1 - busy / wall_ms:.4f}); by kernel:")
-    ours = ("gather_reduce_kernel", "pair_scores_kernel")
+    ours = ("gather_reduce_kernel", "pair_scores_kernel",
+            "gather_rows_kernel")
     for rank, (t, key, count) in enumerate(sorted(rows, reverse=True)):
         if rank < top or any(name in key for name in ours):
             log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
@@ -528,7 +550,8 @@ def train_method(method: str, ds, dev: torch.device) -> dict:
     val_f1 = tr.history[-1]["val_f1"]
     evals = 1 + ("test_f1" in tr.history[-1])
     want = {"gather_mean": 2 * steps + 2 * evals, "gather_max": 0,
-            "pair_scores": steps if method == "plus_unsup" else 0}
+            "pair_scores": steps if method == "plus_unsup" else 0,
+            "gather_rows": 0}
     log(f"[train {method}] main path: Trainer.fit, {steps} steps + "
         f"{evals} evaluation embeddings in {fit_s:.3f} s; launches "
         f"{launches}")
@@ -711,7 +734,335 @@ def mean_step_rows(step_inputs: dict, launches: int) -> list:
     return rows
 
 
+# ------------------------------------------------------------ cached training
+
+# (label, learn_method, agg_func, gcn, b_sz, extend_batches, train nodes
+#  kept (None: the whole split), epochs, refresh_every)
+CACHED_CONFIGS = (
+    ("a", "sup", "MEAN", False, 32768, False, None, 3, 2),
+    ("b", "sup", "MAX", True, 512, False, 5120, 1, 1),
+    ("c", "plus_unsup", "MEAN", False, 20, True, 1000, 1, 1),
+)
+TABLE_CAP = 32
+TIMED_STEPS = 20
+
+
+class RecordingHop:
+    """The trainer's hop sampler, with every draw kept in order."""
+
+    def __init__(self, hop):
+        self.hop = hop
+        self.draws = []
+
+    def __call__(self, nodes, fanout):
+        out = self.hop(nodes, fanout)
+        self.draws.append(out)
+        return out
+
+
+class ReplayHop:
+    """Gives back recorded draws in order (the plain run's sampler)."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+
+    def __call__(self, nodes, fanout):
+        samples, valid = self.draws.pop(0)
+        assert samples.shape == (nodes.shape[0], fanout), samples.shape
+        return samples, valid
+
+
+@contextlib.contextmanager
+def plain_cached():
+    """The cached pipeline through the plain versions on the card."""
+    with patched(cached, gather_rows=gather.gather_rows_plain,
+                 mean_aggregate=agg.mean_aggregate_plain,
+                 max_aggregate=agg.max_aggregate_plain), \
+            patched(sddmm, pair_scores=sddmm.dense_pair_scores):
+        yield
+
+
+def predicted_launches(tr: CachedTrainer, records: list,
+                       epochs: int) -> dict:
+    """What the code launches in the counted fit: per refresh one
+    gather_mean / gather_max launch; per step one gather_rows launch on the
+    full-table branch and two per occurrence, by cached.layer1_full_table
+    at the step's m1; one pair_scores per unsupervised step whose score
+    block sddmm.dense_block_pays picks; per evaluation embedding (val, and
+    test when val F1 improved) one refresh and the layer-1 gathers at
+    m1 = bucket(nodes) x (K + 1)."""
+    k = tr.tcfg.fanout
+
+    def rows_at(m1):
+        return 1 if cached.layer1_full_table(NODES, FEATS, m1, HIDDEN) else 2
+
+    every = tr.tcfg.refresh_every
+    refreshes = sum(1 for ep in range(epochs) if ep % every == 0)
+    want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
+            "gather_rows": 0}
+    for rec in records:
+        batch, _, _, pairs = rec["args"]
+        want["gather_rows"] += rows_at(batch.shape[0] * (k + 1))
+        if pairs is not None:
+            b, u = pairs["target_rows"].shape[0], batch.shape[0]
+            n_pairs = pairs["pos_q"].numel() + pairs["neg_q"].numel()
+            want["pair_scores"] += sddmm.dense_block_pays(b, u, n_pairs,
+                                                          HIDDEN)
+    for entry in tr.history:
+        for nodes, key in ((tr.ds.val_nodes, "val_f1"),
+                           (tr.ds.test_nodes, "test_f1")):
+            if key in entry:
+                refreshes += 1
+                want["gather_rows"] += rows_at(_bucket(len(nodes)) * (k + 1))
+    want["gather_max" if tr.mcfg.agg_func == "MAX" else "gather_mean"] = (
+        refreshes)
+    return want
+
+
+def gather_row(label: str, table: torch.Tensor, idx: torch.Tensor,
+               launches: int) -> dict:
+    """gather_rows against index_select (exact), and its kernel row."""
+    got = gather.gather_rows_kernel(table, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.gather_rows_plain(table, idx)), label
+    j, d = idx.shape[0], table.shape[1]
+    es = table.element_size()
+    rows_read = int(torch.unique(idx).numel())
+    nbytes = rows_read * d * es + j * 4 + j * d * es
+    row = {
+        "name": f"gather_rows ({label})",
+        "route": "cuda",
+        "source": GATHER_SOURCE,
+        "replaces": REPLACES["gather_rows"],
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": cuda_ms(lambda: gather.gather_rows_kernel(table, idx), reps=50),
+        "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(table, idx),
+                            reps=50),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": cuda_ms(lambda: table.index_select(0, idx), reps=50),
+    }
+    log(f"kernel {row['name']}: table {tuple(table.shape)} stride "
+        f"{table.stride(0)} {table.dtype}, {j} ids, {rows_read} rows read, "
+        f"{nbytes} bytes; ms {row['ms']:.6f} bound_ms {row['bound_ms']:.6f} "
+        f"({nbytes / row['ms'] / 1e9:.3f} TB/s) plain_ms "
+        f"{row['plain_ms']:.6f} library_ms {row['library_ms']:.6f} "
+        f"[index_select with the int32 ids]; equal to index_select")
+    return row
+
+
+def cached_config(label: str, method: str, agg_func: str, gcn: bool,
+                  b_sz: int, extend: bool, keep, epochs: int, every: int,
+                  ds, dev: torch.device) -> dict:
+    """One cached configuration: the counted fit, its predicted launches,
+    the lockstep check against the plain versions, the refresh against
+    its plain version, refresh_ms, ms_per_step, the device profile of one
+    epoch and val F1."""
+    if keep is not None:
+        ds = dataclasses.replace(ds, train_nodes=ds.train_nodes[:keep])
+    tag = (f"[cached {label}: {method} {agg_func}{' gcn' if gcn else ''} "
+           f"b_sz {b_sz}{' extended' if extend else ''}]")
+    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
+                          agg_func=agg_func, gcn=gcn)
+    tcfg = TrainConfig(learn_method=method, unsup_loss="normal",
+                       epochs=epochs, b_sz=b_sz, lr=LR, fanout=FANOUT,
+                       seed=SEED, verbose=False, refresh_every=every)
+    t0 = time.perf_counter()
+    tr = CachedTrainer(ds, cfg, tcfg, table_cap=TABLE_CAP,
+                       extend_batches=extend, device=dev)
+    log(f"{tag} trainer: {len(ds.train_nodes)} train nodes, table "
+        f"{tuple(tr.neighbors.shape)}, built in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    # -------- the main path, counted and recorded
+    step, refresh, hop = tr._step, tr._refresh, RecordingHop(tr.hop)
+    records, refreshes = [], []
+
+    def recording_step(params, feats, cache_feats, cache_count, hop_, *args):
+        before = param_snapshot(tr)
+        first = len(hop.draws)
+        loss = step(params, feats, cache_feats, cache_count, hop_, *args)
+        records.append({"before": before, "after": param_snapshot(tr),
+                        "cache": (cache_feats, cache_count), "args": args,
+                        "draws": hop.draws[first:], "loss": loss})
+        return loss
+
+    def recording_refresh():
+        first = len(hop.draws)
+        out = refresh()
+        refreshes.append({"draws": hop.draws[first:], "cache": out})
+        return out
+
+    tr._step, tr._refresh, tr.hop = recording_step, recording_refresh, hop
+    agg.reset_launches()
+    t0 = time.perf_counter()
+    tr.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(agg.LAUNCHES)
+    tr._step, tr._refresh, tr.hop = step, refresh, hop.hop
+    steps = len(records)
+    assert steps == epochs * -(-len(ds.train_nodes) // b_sz), steps
+    want = predicted_launches(tr, records, epochs)
+    log(f"{tag} main path: CachedTrainer.fit, {epochs} epochs of "
+        f"{steps // epochs} steps, {len(refreshes)} refreshes (evaluation "
+        f"included) in {fit_s:.3f} s; launches {launches}; predicted "
+        f"from the code {want}")
+    assert launches == want, (launches, want)
+    losses = np.asarray([float(r["loss"]) for r in records])
+    assert np.isfinite(losses).all()
+
+    # -------- the refresh against its plain version, same samples
+    first = refreshes[0]
+    with plain_cached():
+        ref_feats, ref_cnt = cached.refresh_leaf_cache(
+            ReplayHop(first["draws"]), tr.feats, FANOUT, agg=agg_func)
+    got_feats, got_cnt = first["cache"]
+    err = check_close(f"{tag} refresh vs plain", got_feats, ref_feats,
+                      exact=agg_func == "MAX")
+    assert torch.equal(got_cnt, ref_cnt)
+    log(f"{tag} refresh vs {'max' if agg_func == 'MAX' else 'mean'}"
+        f"_aggregate_plain on the same samples: max abs error {err}; counts "
+        f"equal")
+
+    # -------- lockstep: each plain step from the kernel run's params,
+    # cache and draws of that step
+    ref = _leaf_params(tr.params, dev)
+    loss_rel, param_err = [], []
+    agg.reset_launches()
+    with plain_cached():
+        for rec in records:
+            with torch.no_grad():
+                for p, q in zip(tree_leaves(ref), rec["before"]):
+                    p.copy_(q)
+            loss = step(ref, tr.feats, *rec["cache"],
+                        ReplayHop(rec["draws"]), *rec["args"])
+            loss_rel.append(abs(float(loss) - float(rec["loss"]))
+                            / abs(float(rec["loss"])))
+            param_err.append(max_abs_diff(tree_leaves(ref), rec["after"]))
+    assert sum(agg.LAUNCHES.values()) == 0, agg.LAUNCHES
+    log(f"{tag} lockstep, kernels vs plain versions over {steps} steps: "
+        f"loss max relative difference {max(loss_rel):.3e} (tolerance "
+        f"{LOSS_RTOL}); params after each step max abs difference "
+        f"{max(param_err):.3e} (tolerance {PARAM_ATOL})")
+    assert max(loss_rel) <= LOSS_RTOL and max(param_err) <= PARAM_ATOL
+    del ref
+
+    # -------- refresh_ms and ms_per_step on one cache
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refresh()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    refresh_ms = statistics.median(times)
+    log(f"{tag} refresh_ms {refresh_ms:.6f} (median of 5; min "
+        f"{min(times):.6f}, max {max(times):.6f})")
+    cache = tr._stale_cache
+    last = [rec["args"] for rec in records[-(steps // epochs):]]
+    times = []
+    for i in range(TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(tr.params, tr.feats, *cache, tr.hop, *last[i % len(last)])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = times[2:]
+    ms_per_step = statistics.median(times)
+    log(f"{tag} ms_per_step {ms_per_step:.6f} (median of {len(times)} "
+        f"steps on one cache; min {min(times):.6f}, max {max(times):.6f}); "
+        f"fit loss curve " + " ".join(f"{x:.6f}" for x in losses))
+
+    # -------- the gathers one step makes, for the kernel rows
+    seen = []
+
+    def gather_rec(table, idx):
+        seen.append((table.detach(), idx))
+        return gather.gather_rows(table, idx)
+
+    with patched(cached, gather_rows=gather_rec):
+        step(tr.params, tr.feats, *cache, tr.hop, *last[0])
+    torch.cuda.synchronize()
+
+    # -------- device profile of one epoch (with its refresh)
+    tr.train_epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.train_epoch()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    log(f"{tag} one epoch {wall:.6f} ms (warm, host batch building and "
+        f"the refresh included)")
+    profile_device(tr.train_epoch, wall, what="epoch ms", top=12)
+    val_f1 = tr.history[-1]["val_f1"]
+    log(f"{tag} val F1 {val_f1:.6f}; history {tr.history}")
+    return {"label": label, "launches": launches, "refresh": first,
+            "gathers": seen, "feats": tr.feats,
+            "summary": {"refresh_ms": refresh_ms, "ms_per_step": ms_per_step,
+                        "val_f1": val_f1, "steps": steps}}
+
+
+def cached_rows(results: dict) -> list:
+    """gather_mean / gather_max at the refresh shape, gather_rows at (a)'s
+    full-table and (b)'s per-occurrence shapes."""
+    rows = []
+    for label, name in (("a", "gather_mean"), ("b", "gather_max")):
+        res = results[label]
+        (samples, valid), = res["refresh"]["draws"]
+        own = torch.arange(NODES, dtype=torch.int32, device=samples.device)
+        mask = (valid & (samples != own[:, None])).float()
+        rows.append(kernel_row(name, f"f32 refresh ({label}), idx "
+                               f"[{NODES}, {FANOUT}] over [{NODES}, {FEATS}]",
+                               res["feats"], samples, mask,
+                               res["launches"][name]))
+    for label, what in (("a", "full table"), ("b", "per occurrence")):
+        res = results[label]
+        table, idx = res["gathers"][0]
+        rows.append(gather_row(f"cached ({label}) {what}, {idx.shape[0]} ids "
+                               f"over {list(table.shape)}", table, idx,
+                               res["launches"]["gather_rows"]))
+    return rows
+
+
+def microbench_rows(dev: torch.device, launches: int) -> list:
+    """Phase 8: the port's microbench at tools/pallas_microbench.py's
+    shapes (it checks gather_rows against index_select, exact); its
+    gather_rows row becomes that kernel's row at the microbench shape."""
+    bench = {row["op"]: row for row in microbench.run(dev)}
+    row = bench["gather_rows_cuda_w128_f32"]
+    n, h, u, s = microbench.N, microbench.H, microbench.U, microbench.S
+    return [{"name": f"gather_rows (microbench, {u} x {s} ids over "
+                     f"[{n}, {h}] f32)",
+             "route": "cuda", "source": GATHER_SOURCE,
+             "replaces": REPLACES["gather_rows"], "launches": launches,
+             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by",
+                                          "library_ms")}}]
+
+
 # ------------------------------------------------------------ CLI round trip
+
+def cli_cached(dev: torch.device) -> None:
+    """The CLI's cached pipeline on the card: every layer-1 gather through
+    gather_rows, every refresh through gather_mean."""
+    argv = ["--dataSet", "powerlaw:2000:10000", "--pipeline", "cached",
+            "--table_cap", "8", "--learn_method", "plus_unsup", "--epochs",
+            "2", "--device", str(dev), "--quiet"]
+    agg.reset_launches()
+    t0 = time.perf_counter()
+    trainer, _ = cli.run(argv)
+    torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    log(f"[cli] graphsage_torch.cli {' '.join(argv)}: "
+        f"{time.perf_counter() - t0:.3f} s; launches {launches}; best val "
+        f"F1 {trainer.max_vali_f1:.6f}")
+    assert isinstance(trainer, CachedTrainer)
+    assert np.isfinite(trainer.step_losses).all()
+    assert (launches["gather_rows"] > 0 and launches["gather_mean"] > 0
+            and launches["pair_scores"] > 0), launches
+
 
 def cli_round_trip(dev: torch.device) -> None:
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
@@ -830,6 +1181,17 @@ def run(dev: torch.device) -> int:
     del training, unsup, step_inputs
 
     cli_round_trip(dev)
+    cli_cached(dev)
+
+    results = {}
+    for config in CACHED_CONFIGS:
+        results[config[0]] = cached_config(*config, ds=ds, dev=dev)
+    rows.extend(cached_rows(results))
+    log(json.dumps({"cached": {label: res["summary"]
+                               for label, res in results.items()}}))
+    total = sum(res["launches"]["gather_rows"] for res in results.values())
+    del results
+    rows.extend(microbench_rows(dev, total))
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,19 +1,24 @@
-"""Command-line training, the compact pipeline.
+"""Command-line training: the compact and the leaf-cached pipelines.
 
-Port of the compact path of ``graphsage_tpu/cli.py``, with the reference
-CLI's flags (reference src/main.py:12-27): ``--dataSet --agg_func --epochs
---b_sz --seed --gcn --learn_method --unsup_loss --max_vali_f1 --name``
-(``--cuda`` is accepted and ignored; ``--device`` chooses).  Training runs
-on the card unless ``--device cpu`` is given.  ``--export DIR`` writes the
-best-val model as a serving bundle that ``graphsage_torch.infer`` loads.
+Port of the compact and cached paths of ``graphsage_tpu/cli.py``, with the
+reference CLI's flags (reference src/main.py:12-27): ``--dataSet --agg_func
+--epochs --b_sz --seed --gcn --learn_method --unsup_loss --max_vali_f1
+--name`` (``--cuda`` is accepted and ignored; ``--device`` chooses).
+Training runs on the card unless ``--device cpu`` is given.  ``--export
+DIR`` writes the best-val model as a serving bundle that
+``graphsage_torch.infer`` loads.
 
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 --epochs 2
+    python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
+        --pipeline cached --table_cap 8 --learn_method plus_unsup --epochs 2
 
-Not ported yet, and refused with the ROADMAP item that queues them: the
-other pipelines (``--pipeline cached|cached_dist|dist``, items 10 and 16),
-``--agg_func MAX|LSTM`` training (items 12, 13), bfloat16 training (item
-14), and HOCON ``--config`` files, checkpoints on disk and ``--resume``
-(item 8).
+``--pipeline cached`` (``train.CachedTrainer``) takes ``--table_cap``,
+``--refresh_every``, ``--no_extend`` and ``--lstm_hybrid``, and trains MEAN
+and MAX.  Not ported yet, and refused with the ROADMAP item that queues
+them: ``--pipeline cached_dist|dist`` (item 16), MAX on the compact
+pipeline (item 12), LSTM and the cached-LSTM hybrid (item 13), bfloat16
+training (item 14), and HOCON ``--config`` files, checkpoints on disk and
+``--resume`` (item 8).
 """
 
 from __future__ import annotations
@@ -21,7 +26,6 @@ from __future__ import annotations
 import argparse
 
 _NOT_PORTED = {
-    "cached": "the cached pipeline (ROADMAP A item 10)",
     "cached_dist": "the sharded cached pipeline (ROADMAP A item 16)",
     "dist": "the edge-partitioned pipeline (ROADMAP A item 16)",
 }
@@ -52,8 +56,22 @@ def build_parser() -> argparse.ArgumentParser:
     # framework flags
     p.add_argument("--pipeline", type=str, default="compact",
                    choices=["compact", "cached", "cached_dist", "dist"],
-                   help="compact = the per-step reference-parity path (the "
-                        "only one ported so far)")
+                   help="compact = the per-step reference-parity path; "
+                        "cached = the leaf-cached path (LSTM needs "
+                        "--lstm_hybrid, not ported yet)")
+    p.add_argument("--table_cap", type=int, default=None,
+                   help="cached pipeline: cap the padded adjacency width "
+                        "(a uniform subset per row); None = full degree")
+    p.add_argument("--lstm_hybrid", action="store_true",
+                   help="cached pipeline + --agg_func LSTM: the hybrid "
+                        "variant (not ported yet, ROADMAP A item 13)")
+    p.add_argument("--refresh_every", type=int, default=1,
+                   help="cached pipeline: refresh the leaf cache every k "
+                        "epochs")
+    p.add_argument("--no_extend", action="store_true",
+                   help="cached pipeline: plain fixed-size supervised "
+                        "batches instead of the reference's pair-extended "
+                        "batches")
     p.add_argument("--fanout", type=int, default=10)
     p.add_argument("--num_layers", type=int, default=2)
     p.add_argument("--hidden", type=int, default=128)
@@ -92,7 +110,7 @@ def run(argv=None):
     the best-val snapshot ({"params", "epoch", "test_f1"}) that
     ``--export`` ships."""
     args = build_parser().parse_args(argv)
-    if args.pipeline != "compact":
+    if args.pipeline not in ("compact", "cached"):
         raise NotImplementedError(f"--pipeline {args.pipeline}: "
                                   f"{_NOT_PORTED[args.pipeline]} is not "
                                   f"ported yet")
@@ -104,7 +122,7 @@ def run(argv=None):
     from graphsage_torch.data import load_dataset
     from graphsage_torch.infer import export_bundle
     from graphsage_torch.models import GraphSageConfig
-    from graphsage_torch.train import Trainer, TrainConfig
+    from graphsage_torch.train import CachedTrainer, Trainer, TrainConfig
 
     kw = {"root": args.data_root} if args.data_root else {}
     ds = load_dataset(args.dataSet, seed=args.seed, **kw)
@@ -121,7 +139,7 @@ def run(argv=None):
         b_sz=args.b_sz, epochs=args.epochs, lr=args.lr, seed=args.seed,
         fanout=args.fanout, clf_epochs=args.clf_epochs,
         strict_clf_eval=args.strict_clf_eval, verbose=not args.quiet,
-        metrics_path=args.metrics)
+        metrics_path=args.metrics, refresh_every=args.refresh_every)
 
     # best-val params snapshot: checkpoint_fn fires exactly on val
     # improvement, so the last snapshot is the model that reached
@@ -133,8 +151,15 @@ def run(argv=None):
         best["epoch"] = trainer.epoch
         best["test_f1"] = float(test_f1)
 
-    trainer = Trainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
-                      device=args.device)
+    if args.pipeline == "cached":
+        trainer = CachedTrainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
+                                table_cap=args.table_cap,
+                                extend_batches=not args.no_extend,
+                                lstm_hybrid=args.lstm_hybrid,
+                                device=args.device)
+    else:
+        trainer = Trainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
+                          device=args.device)
     trainer.max_vali_f1 = args.max_vali_f1
 
     if args.learn_method == "sup":

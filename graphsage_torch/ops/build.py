@@ -29,6 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "aggregate": _PKG / "csrc" / "aggregate.cu",
     "sddmm": _PKG / "csrc" / "sddmm.cu",
+    "gather": _PKG / "csrc" / "gather.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "graphsage_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,6 +46,10 @@ _AGG_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
 _SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+# rows: (dtype, device, table, table_stride, idx, out, rows, D, stream)
+_ROWS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]
 _ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
 _SIGNATURES = {
     "aggregate": {
@@ -54,6 +59,10 @@ _SIGNATURES = {
     },
     "sddmm": {
         "gs_pair_scores": (_SCORE_ARGS, ctypes.c_int),
+        "gs_error_string": _ERROR_STRING,
+    },
+    "gather": {
+        "gs_gather_rows": (_ROWS_ARGS, ctypes.c_int),
         "gs_error_string": _ERROR_STRING,
     },
 }

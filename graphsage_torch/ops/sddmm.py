@@ -165,18 +165,23 @@ def gathered_pair_cosines(emb: torch.Tensor, target_rows: torch.Tensor,
     return pos_cos.to(emb.dtype), neg_cos.to(emb.dtype)
 
 
+def dense_block_pays(b: int, u: int, n_pairs: int, h: int) -> bool:
+    """Whether ``pair_loss_scores`` takes the dense [B, U] block: the JAX
+    package's byte model (``sddmm.py:149``), kept as it is for parity,
+    block traffic 3*B*U against 3*pairs*H + U*H."""
+    return 3 * b * u <= 3 * n_pairs * h + u * h
+
+
 def pair_loss_scores(emb: torch.Tensor, target_rows: torch.Tensor,
                      pos_q: torch.Tensor, neg_q: torch.Tensor,
                      eps: float = _EPS):
     """Per-pair cosines for the losses: the dense block when it is cheap
     (small B * U, the compact pipeline's batches), the gathered form when
-    the block would be mostly waste.  The crossover is the JAX package's
-    byte model (``sddmm.py:149``), kept as it is for parity: block traffic
-    3*B*U against 3*pairs*H + U*H."""
+    the block would be mostly waste (``dense_block_pays``)."""
     b = target_rows.shape[0]
     u, h = emb.shape
     n_pairs = pos_q.shape[0] * pos_q.shape[1] + neg_q.shape[0] * neg_q.shape[1]
-    if 3 * b * u <= 3 * n_pairs * h + u * h:
+    if dense_block_pays(b, u, n_pairs, h):
         scores = pair_scores(emb, target_rows, eps=eps)
         return sample_scores(scores, pos_q), sample_scores(scores, neg_q)
     return gathered_pair_cosines(emb, target_rows, pos_q, neg_q, eps=eps)

@@ -1,8 +1,10 @@
+from graphsage_torch.train.cached_trainer import CachedTrainer
 from graphsage_torch.train.metrics import micro_f1
 from graphsage_torch.train.optim import clip_by_global_norm, sgd_update
 from graphsage_torch.train.trainer import Trainer, TrainConfig
 
 __all__ = [
+    "CachedTrainer",
     "clip_by_global_norm",
     "micro_f1",
     "sgd_update",

@@ -33,6 +33,25 @@ def clip_by_global_norm(grads: list[torch.Tensor],
     return [g * scale.to(g.dtype) for g in grads]
 
 
+def apply_gradients(params: dict, loss: torch.Tensor, models, lr: float,
+                    clip_norm: float) -> None:
+    """Backward of ``loss``, then per-model clip (reference
+    src/utils.py:185-186) and SGD, in place.  ``params`` maps each name in
+    ``models`` to a pytree of leaf tensors; a model the loss does not reach
+    gets a zero gradient (its params stay)."""
+    leaves = {k: tree_leaves(params[k]) for k in models}
+    flat = [p for k in models for p in leaves[k]]
+    grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    at = 0
+    for k in models:
+        n = len(leaves[k])
+        sgd_update(leaves[k], clip_by_global_norm(grads[at:at + n],
+                                                  clip_norm), lr)
+        at += n
+
+
 @torch.no_grad()
 def sgd_update(params: list[torch.Tensor], grads: list[torch.Tensor],
                lr: float) -> None:

@@ -50,8 +50,7 @@ from graphsage_torch.models.layers import classifier_apply, init_classifier
 from graphsage_torch.sampler import PairSampler, build_compact_batch
 from graphsage_torch.sampler.compact import _bucket
 from graphsage_torch.train.metrics import micro_f1
-from graphsage_torch.train.optim import (clip_by_global_norm, sgd_update,
-                                         tree_leaves)
+from graphsage_torch.train.optim import apply_gradients
 from graphsage_torch.utils.obs import MetricsLogger
 from graphsage_torch.utils.prefetch import Prefetcher, prefetch
 
@@ -79,6 +78,9 @@ class TrainConfig:
     # build batch i+1 on a worker thread while the card runs step i; depth
     # bounds the run-ahead, 0 builds serially.  Bit-identical either way
     prefetch_depth: int = 2
+    # cached pipeline only: refresh the leaf cache every k epochs instead
+    # of every epoch (k=1, the default)
+    refresh_every: int = 1
 
     @property
     def num_neg(self) -> int:
@@ -131,10 +133,7 @@ class Trainer:
         """``params``: the initial {"sage", "clf"} pytree (numpy arrays or
         tensors, e.g. a JAX ``Trainer``'s); by default drawn from a
         ``torch.Generator`` seeded with ``train_cfg.seed``."""
-        _check_trainable(model_cfg)
-        if model_cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 training is not ported yet (ROADMAP A item 14)")
+        self._check_config(model_cfg)
         self.ds = dataset
         self.mcfg = model_cfg
         self.tcfg = train_cfg
@@ -161,6 +160,14 @@ class Trainer:
         self.step_losses: list[float] = []   # the last epoch's, per step
         self.metrics = MetricsLogger(train_cfg.metrics_path)
 
+    @staticmethod
+    def _check_config(model_cfg: GraphSageConfig) -> None:
+        """The compact pipeline trains MEAN in float32."""
+        _check_trainable(model_cfg)
+        if model_cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                "bfloat16 training is not ported yet (ROADMAP A item 14)")
+
     # ---------------------------------------------------------------- step
     def _encode(self, sage_params: dict, cb) -> torch.Tensor:
         return graphsage_apply_gathered(
@@ -183,24 +190,9 @@ class Trainer:
             loss = loss + unsup_loss_from_pairbatch(
                 embs, _pair_tensors(pb, self.device), tcfg.unsup_loss,
                 q=self.pair_sampler.q, margin=self.pair_sampler.margin)
-        self._apply_gradients(loss, ("sage", "clf"), tcfg.lr)
+        apply_gradients(self.params, loss, ("sage", "clf"), tcfg.lr,
+                        tcfg.clip_norm)
         return loss.detach()
-
-    def _apply_gradients(self, loss: torch.Tensor, models, lr: float):
-        """Per-model clip (reference src/utils.py:185-186), then SGD.  A
-        model the loss does not reach gets a zero gradient (its params
-        stay)."""
-        leaves = {k: tree_leaves(self.params[k]) for k in models}
-        flat = [p for k in models for p in leaves[k]]
-        grads = torch.autograd.grad(loss, flat, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(flat, grads)]
-        at = 0
-        for k in models:
-            n = len(leaves[k])
-            clipped = clip_by_global_norm(grads[at:at + n], self.tcfg.clip_norm)
-            sgd_update(leaves[k], clipped, lr)
-            at += n
 
     # ----------------------------------------------------------- embedding
     def embed_nodes(self, nodes: np.ndarray, sage_params=None) -> np.ndarray:
@@ -348,7 +340,8 @@ class Trainer:
                                         _to_device(emb_b, self.device))
                 loss = supervised_nll(logp, _to_device(lab_b, self.device),
                                       _to_device(mask, self.device))
-                self._apply_gradients(loss, ("clf",), tcfg.clf_lr)
+                apply_gradients(self.params, loss, ("clf",), tcfg.clf_lr,
+                                tcfg.clip_norm)
             self.evaluate(cached_embs=None if tcfg.strict_clf_eval
                           else feats)
         return self.max_vali_f1

@@ -1,5 +1,6 @@
-"""The CUDA kernels of graphsage_torch.ops.aggregate and .ops.sddmm against
-their plain versions, and what the kernel wrappers refuse.
+"""The CUDA kernels of graphsage_torch.ops.aggregate, .ops.sddmm and
+.ops.gather against their plain versions, and what the kernel wrappers
+refuse.
 
 This file imports no JAX, so that it also runs on a machine with a card and
 no JAX.  There the ``gpu`` tests run; elsewhere they skip:
@@ -13,9 +14,11 @@ Tolerances on the card: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps
 Pair scores in bfloat16: within 2 ulps plus 1e-5, because both versions sum
 in float32 in other orders and round once, and near 0, where a dot product
 cancels, a float32 difference of ~1e-5 is many bf16 ulps.
-Gradients (gather-mean's scatter-add, the score block's analytic backward)
-against autograd through the plain versions: float32 rtol=atol=1e-5
-(``index_add_`` adds with atomics, in no fixed order).
+Gradients (gather-mean's scatter-add, the score block's analytic backward,
+the row gather's ``index_add_``) against autograd through the plain
+versions: float32 rtol=atol=1e-5 (``index_add_`` adds with atomics, in no
+fixed order).  The row gather is a copy: equal to ``index_select`` bit for
+bit.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.ops import build
+from graphsage_torch.ops import gather
 from graphsage_torch.ops import sddmm
 
 CASES = {
@@ -81,15 +85,17 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
                        agg.mean_aggregate_plain(e, i, m))
     assert torch.equal(agg.max_aggregate(e, i, m),
                        agg.max_aggregate_plain(e, i, m))
+    assert torch.equal(gather.gather_rows(e, i[:, 0]),
+                       gather.gather_rows_plain(e, i[:, 0]))
     assert agg.LAUNCHES == before
     agg.reset_launches()
     assert agg.LAUNCHES == {"gather_mean": 0, "gather_max": 0,
-                            "pair_scores": 0}
+                            "pair_scores": 0, "gather_rows": 0}
 
 
 def test_build_targets_hopper_into_the_build_directory():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert set(build.SOURCES) == {"aggregate", "sddmm"}
+    assert set(build.SOURCES) == {"aggregate", "sddmm", "gather"}
     for name in build.SOURCES:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.suffix == ".so"
@@ -298,3 +304,112 @@ def test_pair_scores_gradient_on_card(case):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
     assert not grads[0][:, :h].any()
+
+
+# ------------------------------------------------------------ row gather
+
+@pytest.mark.parametrize("args,error,match", [
+    (dict(table=torch.zeros(10, 6), idx=torch.zeros(3, dtype=torch.int64)),
+     TypeError, "idx"),
+    (dict(table=torch.zeros(10, 6, dtype=torch.float16),
+          idx=torch.zeros(3, dtype=torch.int32)), TypeError, "table"),
+    (dict(table=torch.zeros(6, 10).T, idx=torch.zeros(3, dtype=torch.int32)),
+     ValueError, "column stride"),
+    (dict(table=torch.zeros(10, 6),
+          idx=torch.zeros(3, 2, dtype=torch.int32)), ValueError, "expected"),
+    (dict(table=torch.zeros(10, 6),
+          idx=torch.zeros(6, dtype=torch.int32)[::2]), ValueError,
+     "contiguous"),
+    (dict(table=torch.zeros(10, 6), idx=torch.zeros(3, dtype=torch.int32)),
+     ValueError, "CUDA device"),
+], ids=["idx-int64", "table-f16", "table-strided-cols", "idx-2d",
+        "idx-strided", "cpu-tensors"])
+def test_gather_wrapper_refuses_what_the_kernel_does_not_take(args, error,
+                                                              match):
+    with pytest.raises(error, match=match):
+        gather._check_kernel_args(**args)
+
+
+def test_gather_library_builds_beside_the_others():
+    assert set(build._SIGNATURES["gather"]) == {"gs_gather_rows",
+                                                "gs_error_string"}
+    assert build.library_path("gather") not in {
+        build.library_path("aggregate"), build.library_path("sddmm")}
+
+
+GATHER_CASES = {
+    "microbench": dict(m=1000, d=128, j=4096),
+    "features602": dict(m=500, d=602, j=700),     # 8-byte-aligned rows
+    "unaligned": dict(m=50, d=7, j=33),           # odd width
+    "one_row": dict(m=1, d=130, j=5),
+}
+
+
+def _gather_case(name, seed=0):
+    c = GATHER_CASES[name]
+    rng = np.random.RandomState(seed)
+    table = rng.randn(c["m"], c["d"]).astype(np.float32)
+    return table, rng.randint(0, c["m"], c["j"]).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_equals_index_select_on_card(dtype, case):
+    dev = _card()
+    table, idx = _gather_case(case)
+    t = torch.from_numpy(table).to(dev, dtype)
+    i = torch.from_numpy(idx).to(dev)
+    before = agg.LAUNCHES["gather_rows"]
+    got = gather.gather_rows(t, i)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["gather_rows"] == before + 1
+    assert torch.equal(got, t.index_select(0, i.long()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_gather_rows_takes_strided_views_on_card(dtype, offset):
+    """Views whose address and row stride take every load width: a
+    [:, offset:offset + D] window of a wider table."""
+    dev = _card()
+    table, idx = _gather_case("unaligned", seed=1)
+    wide = torch.from_numpy(np.concatenate([table] * 3, axis=1)).to(dev,
+                                                                    dtype)
+    view = wide[:, offset:offset + 16]
+    i = torch.from_numpy(idx).to(dev)
+    assert torch.equal(gather.gather_rows(view, i),
+                       view.index_select(0, i.long()))
+
+
+@pytest.mark.gpu
+def test_gather_rows_empty_idx_launches_nothing_on_card():
+    dev = _card()
+    t = torch.randn(5, 8, device=dev)
+    before = dict(agg.LAUNCHES)
+    out = gather.gather_rows(t, torch.zeros(0, dtype=torch.int32,
+                                            device=dev))
+    assert out.shape == (0, 8)
+    assert agg.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["microbench", "features602"])
+def test_gather_rows_backward_on_card(case):
+    """GatherRows' index_add_ gradient against autograd through
+    index_select, on a strided view."""
+    dev = _card()
+    table, idx = _gather_case(case, seed=2)
+    i = torch.from_numpy(idx).to(dev)
+    g = torch.randn(len(idx), table.shape[1],
+                    generator=torch.Generator().manual_seed(3)).to(dev)
+    wide = torch.from_numpy(np.concatenate([table, table], axis=1)).to(dev)
+    d = table.shape[1]
+    grads = []
+    for fn in (gather.gather_rows, gather.gather_rows_plain):
+        w = wide.clone().requires_grad_(True)
+        (fn(w[:, d:], i) * g).sum().backward()
+        grads.append(w.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    assert not grads[0][:, :d].any()

@@ -331,15 +331,44 @@ def test_cli_trains_exports_and_serves(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--pipeline", "cached"], "item 10"),
+    (["--pipeline", "cached_dist"], "item 16"),
     (["--pipeline", "dist"], "item 16"),
     (["--resume", "x"], "item 8"),
     (["--agg_func", "MAX"], "item 12"),
+    (["--pipeline", "cached", "--agg_func", "LSTM", "--lstm_hybrid"],
+     "item 13"),
+    (["--pipeline", "cached", "--compute_dtype", "bfloat16"], "item 14"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--dataSet", "powerlaw:100:400", "--device", "cpu",
                   "--epochs", "1", "--quiet", *flags])
+
+
+def test_cli_cached_pipeline_trains_exports_and_serves(tmp_path,
+                                                     monkeypatch):
+    """--pipeline cached on the CPU with its flags, then the exported
+    bundle served by InferenceSession.from_bundle."""
+    monkeypatch.setenv("GS_EXACT_NEG_BUDGET_S", "0")
+    out = str(tmp_path / "cached")
+    trainer, best = cli.run([
+        "--dataSet", "powerlaw:300:1200", "--pipeline", "cached",
+        "--table_cap", "8", "--refresh_every", "2", "--epochs", "2",
+        "--learn_method", "plus_unsup", "--b_sz", "50", "--hidden", "16",
+        "--device", "cpu", "--export", out, "--seed", "3", "--quiet"])
+    assert type(trainer).__name__ == "CachedTrainer"
+    assert trainer.neighbors.shape[1] == 8 and len(trainer.history) == 2
+    params, mcfg, _, meta = infer.load_bundle(out)
+    assert meta["params"] == "best-val" and mcfg.out_size == 16
+    pad = trainer.ds.graph.to_padded()
+    sess = infer.InferenceSession.from_bundle(out, trainer.ds.features, pad,
+                                              device="cpu")
+    want = infer.full_graph_embeddings(best["params"]["sage"], mcfg,
+                                       trainer.ds.features, pad,
+                                       device="cpu")
+    np.testing.assert_allclose(sess.embeddings(), want, rtol=1e-5,
+                               atol=1e-5)
+    assert np.isfinite(sess.embeddings()).all()
 
 
 def test_metrics_sink_records_epochs(datasets, tmp_path):
