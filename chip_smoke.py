@@ -24,8 +24,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    - the full embedding table against the same session run through the
      plain versions on the card;
    - each kernel alone at that layer's shapes against its plain version,
-     timed with CUDA events over many warm launches, beside its byte bound,
-     the plain version's time and a one-call library yardstick.
+     timed three ways (graphsage_torch.microbench.times): ``ms``, CUDA
+     events over many warm launches of the wrapper; ``device_ms``, the
+     kernel's own device time a launch (torch.profiler); ``host_us``, the
+     wrapper's host time a call; beside its byte bound, the plain version's
+     time and a one-call library yardstick (its ms and device_ms).
 
 4. Training at full width (compact pipeline, the CLI's default), on the
    same graph: 2-layer MEAN GraphSAGE, hidden 128, fanout 10, b_sz 20, lr
@@ -89,9 +92,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (b)'s per-occurrence gathers, equal to index_select bit for bit.
 8. The port's microbench (graphsage_torch.microbench) at
    tools/pallas_microbench.py's shapes: row gather, gather+mean,
-   scatter-add (unsorted and presorted) and the [512 x 2048] score block;
-   its row gather (45,056 x 11 ids over [100000, 128], equal to
-   index_select bit for bit) is gather_rows' kernel row at that shape.
+   scatter-add (unsorted and presorted) and the [512 x 2048] score block,
+   and at the cached pipeline's 602-wide shapes (a row gather of 5,632 ids,
+   gather+mean at the refresh's [100000, 10]); its row gather (45,056 x 11
+   ids over [100000, 128], equal to index_select bit for bit) is
+   gather_rows' kernel row at that shape.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -128,7 +133,8 @@ from graphsage_torch import cli, infer, microbench
 from graphsage_torch.convert import flatten_params
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
-from graphsage_torch.microbench import F32_OPS_PER_S, HBM_BYTES_PER_S, cuda_ms
+from graphsage_torch.microbench import (F32_OPS_PER_S, HBM_BYTES_PER_S,
+                                        cuda_ms, times)
 from graphsage_torch.models import (GraphSageConfig, graphsage,
                                     init_classifier, init_graphsage)
 from graphsage_torch.native import build as native_build
@@ -304,20 +310,26 @@ def kernel_row(name: str, label: str, embed: torch.Tensor,
         "replaces": REPLACES[name],
         "launches": launches,
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: kernel(embed, idx, mask), reps=50),
+        **times(lambda: kernel(embed, idx, mask), "gather_reduce_kernel",
+                library=library, reps=20),
         "plain_ms": cuda_ms(lambda: plain(embed, idx, mask), reps=5),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": cuda_ms(library, reps=20),
     }
     log(f"kernel {row['name']}: embed {tuple(embed.shape)} stride "
         f"{embed.stride(0)} {embed.dtype}, idx {tuple(idx.shape)}, "
         f"{n_valid} valid slots, {rows_read} rows read, {nbytes} bytes; "
-        f"ms {row['ms']:.6f} bound_ms {row['bound_ms']:.6f} plain_ms "
-        f"{row['plain_ms']:.6f} library_ms {row['library_ms']:.6f} "
-        f"[{library_note}, max abs diff to the kernel {library_err}] "
-        f"max_abs_err {err}")
+        f"{timing_note(row)} [{library_note}, max abs diff to the kernel "
+        f"{library_err}] max_abs_err {err}")
     return row
+
+
+def timing_note(row: dict) -> str:
+    return (f"ms {row['ms']:.6f} device_ms {row['device_ms']:.6f} host_us "
+            f"{row['host_us']:.3f} bound_ms {row['bound_ms']:.6f} "
+            f"({row['bound_ms'] / row['device_ms']:.0%} of it) plain_ms "
+            f"{row['plain_ms']:.6f} library_ms {row['library_ms']:.6f} "
+            f"library_device_ms {row['library_device_ms']:.6f}")
 
 
 # ------------------------------------------------------------ serving
@@ -668,22 +680,20 @@ def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
         "replaces": REPLACES["pair_scores"],
         "launches": launches,
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: sddmm.pair_scores_kernel(emb, target_rows),
-                      reps=100),
+        **times(lambda: sddmm.pair_scores_kernel(emb, target_rows),
+                "pair_scores_kernel", library=library, reps=100),
         "plain_ms": cuda_ms(lambda: sddmm.dense_pair_scores(emb,
                                                             target_rows),
                             reps=50),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": cuda_ms(library, reps=50),
     }
     log(f"kernel {row['name']}: emb {tuple(emb.shape)} stride "
         f"{emb.stride(0)} {emb.dtype}, {b} targets, {nbytes} bytes, {ops} "
-        f"operations; ms {row['ms']:.6f} bound_ms {row['bound_ms']:.6f} "
-        f"({row['bound_by']}) plain_ms {row['plain_ms']:.6f} library_ms "
-        f"{row['library_ms']:.6f} [torch.mm of F.normalize'd rows, max abs "
-        f"diff to the kernel {library_err}] max_abs_err {err} bf16 "
-        f"max_abs_err {err16} gradient max_abs_err {grad_err}")
+        f"operations ({row['bound_by']}); {timing_note(row)} [torch.mm of "
+        f"F.normalize'd rows, max abs diff to the kernel {library_err}] "
+        f"max_abs_err {err} bf16 max_abs_err {err16} gradient max_abs_err "
+        f"{grad_err}")
     return row
 
 
@@ -836,19 +846,19 @@ def gather_row(label: str, table: torch.Tensor, idx: torch.Tensor,
         "replaces": REPLACES["gather_rows"],
         "launches": launches,
         "max_abs_err": 0.0,
-        "ms": cuda_ms(lambda: gather.gather_rows_kernel(table, idx), reps=50),
+        **times(lambda: gather.gather_rows_kernel(table, idx),
+                "gather_rows_kernel",
+                library=lambda: table.index_select(0, idx)),
         "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(table, idx),
                             reps=50),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
-        "library_ms": cuda_ms(lambda: table.index_select(0, idx), reps=50),
     }
     log(f"kernel {row['name']}: table {tuple(table.shape)} stride "
         f"{table.stride(0)} {table.dtype}, {j} ids, {rows_read} rows read, "
-        f"{nbytes} bytes; ms {row['ms']:.6f} bound_ms {row['bound_ms']:.6f} "
-        f"({nbytes / row['ms'] / 1e9:.3f} TB/s) plain_ms "
-        f"{row['plain_ms']:.6f} library_ms {row['library_ms']:.6f} "
-        f"[index_select with the int32 ids]; equal to index_select")
+        f"{nbytes} bytes ({nbytes / row['device_ms'] / 1e9:.3f} TB/s of "
+        f"device time); {timing_note(row)} [index_select with the int32 "
+        f"ids]; equal to index_select")
     return row
 
 
@@ -1037,9 +1047,10 @@ def microbench_rows(dev: torch.device, launches: int) -> list:
                      f"[{n}, {h}] f32)",
              "route": "cuda", "source": GATHER_SOURCE,
              "replaces": REPLACES["gather_rows"], "launches": launches,
-             **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                          "bound_ms", "bound_by",
-                                          "library_ms")}}]
+             **{key: row[key] for key in (
+                 "max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
+                 "bound_ms", "bound_by", "library_ms",
+                 "library_device_ms")}}]
 
 
 # ------------------------------------------------------------ CLI round trip

@@ -124,6 +124,34 @@ def _check_kernel_args(embed: torch.Tensor, idx: torch.Tensor,
                          f"got {embed.device}, {idx.device}, {mask.device}")
 
 
+def widest_unit(elt: int, *byte_counts: int) -> int:
+    """The widest access of 16, 8, 4 or 2 bytes, no narrower than an element
+    of ``elt`` bytes, that divides every address, stride and width in
+    ``byte_counts``."""
+    n = 0
+    for count in byte_counts:
+        n |= count
+    low = n & -n  # the largest power of two dividing all of them
+    return max(elt, 16 if n == 0 or low >= 16 else low)
+
+
+def aggregate_plan(elt: int, embed_mod16: int, stride_bytes: int,
+                   row_bytes: int, out_mod16: int) -> tuple[int, int, int]:
+    """Launch plan of ``gather_reduce_kernel``: (unit bytes a lane loads,
+    lanes a row, units a lane a pass).
+
+    The unit is the widest that divides the embed table's address (mod 16),
+    its row stride, the row width in bytes and the output's address.  A row
+    of at most 16 units takes 16 lanes (two rows a warp), a wider row 32,
+    with 1, 2 or 4 units a lane a pass (rows wider than 128 units take
+    several passes)."""
+    unit = widest_unit(elt, embed_mod16, stride_bytes, row_bytes, out_mod16)
+    units = row_bytes // unit
+    if units <= 16:
+        return unit, 16, 1
+    return unit, 32, 1 if units <= 32 else 2 if units <= 64 else 4
+
+
 def _launch(name: str, symbol: str, embed: torch.Tensor, idx: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
     _check_kernel_args(embed, idx, mask)
@@ -133,11 +161,15 @@ def _launch(name: str, symbol: str, embed: torch.Tensor, idx: torch.Tensor,
     if u == 0 or d == 0:
         return out
     lib = build.load_library("aggregate")
+    elt = embed.element_size()
+    unit, lanes, kc = aggregate_plan(elt, embed.data_ptr() % 16,
+                                     embed.stride(0) * elt, d * elt,
+                                     out.data_ptr() % 16)
     stream = torch.cuda.current_stream(embed.device).cuda_stream
     rc = getattr(lib, symbol)(
         _DTYPE_CODES[embed.dtype], embed.device.index, embed.data_ptr(),
         embed.stride(0), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        u, s, d, stream)
+        u, s, d, unit, lanes, kc, stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
                            f"({lib.gs_error_string(rc).decode()})")

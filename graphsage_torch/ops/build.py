@@ -36,20 +36,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the C entry points of each library and their ctypes signatures
-# gather: (dtype, device, embed, embed_stride, idx, mask, out, U, S, D,
-#          stream)
+# aggregate: (dtype, device, embed, embed_stride, idx, mask, out, U, S,
+#             D, unit, lanes, kc, stream)
 _AGG_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # scores: (dtype, device, emb, emb_stride, target_rows, out, B, U, H, eps,
 #          stream)
 _SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-# rows: (dtype, device, table, table_stride, idx, out, rows, D, stream)
+# rows: (dtype, device, table, table_stride, idx, out, rows, D, unit,
+#        stream)
 _ROWS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p]
+              ctypes.c_int, ctypes.c_void_p]
 _ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
 _SIGNATURES = {
     "aggregate": {
@@ -126,7 +128,11 @@ def build() -> dict[str, Path]:
 
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of source ``name`` (a key of :data:`SOURCES`).
-    The first call builds every source, so they compile in parallel."""
+    The first call builds every source, so they compile in parallel; once
+    a library is loaded, a call returns it without taking the lock."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         if not _libs:
             for lib_name, path in build().items():

@@ -24,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from graphsage_torch.ops import build
-from graphsage_torch.ops.aggregate import _DTYPE_CODES, _INT_MAX, LAUNCHES
+from graphsage_torch.ops.aggregate import (_DTYPE_CODES, _INT_MAX, LAUNCHES,
+                                          widest_unit)
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -67,10 +68,13 @@ def gather_rows_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if j == 0 or d == 0:
         return out
     lib = build.load_library("gather")
+    elt = table.element_size()
+    unit = widest_unit(elt, table.data_ptr() % 16, table.stride(0) * elt,
+                       d * elt, out.data_ptr() % 16)
     stream = torch.cuda.current_stream(table.device).cuda_stream
     rc = lib.gs_gather_rows(_DTYPE_CODES[table.dtype], table.device.index,
                             table.data_ptr(), table.stride(0), idx.data_ptr(),
-                            out.data_ptr(), j, d, stream)
+                            out.data_ptr(), j, d, unit, stream)
     if rc != 0:
         raise RuntimeError(f"gather_rows launch failed: CUDA error {rc} "
                            f"({lib.gs_error_string(rc).decode()})")

@@ -110,6 +110,90 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
         build.nvcc_path()
 
 
+class _RefusingLock:
+    def __enter__(self):
+        raise AssertionError("the lock was taken for a loaded library")
+
+    def __exit__(self, *exc):
+        return False
+
+
+def test_loaded_library_is_returned_without_the_lock(monkeypatch):
+    loaded = object()
+    monkeypatch.setattr(build, "_libs", {"gather": loaded})
+    monkeypatch.setattr(build, "_lock", _RefusingLock())
+    assert build.load_library("gather") is loaded
+    with pytest.raises(AssertionError, match="lock"):
+        build.load_library("aggregate")
+
+
+# ------------------------------------------------------------ launch plans
+
+# (elt, embed address mod 16, row stride bytes, row bytes) -> (unit, lanes,
+# units a lane a pass), at the main path's shapes
+AGG_PLANS = {
+    "serving f32 z[:, H:]": ((4, 0, 1024, 512), (16, 32, 1)),
+    "serving bf16 z[:, H:]": ((2, 0, 512, 256), (16, 16, 1)),
+    "MAX bf16 layer 1": ((2, 0, 1204, 1204), (4, 32, 4)),
+    "MAX bf16 layer 2": ((2, 0, 256, 256), (16, 16, 1)),
+    "refresh f32 602": ((4, 0, 2408, 2408), (8, 32, 4)),
+    "compact layers": ((4, 0, 512, 512), (16, 32, 1)),
+    "offset view": ((4, 4, 2408, 2400), (4, 32, 4)),
+    "narrow bf16": ((2, 2, 14, 14), (2, 16, 1)),
+    "40 f32": ((4, 0, 160, 160), (16, 16, 1)),
+    "130 bf16": ((2, 0, 260, 260), (4, 32, 4)),
+    "200 f32": ((4, 0, 800, 800), (16, 32, 2)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AGG_PLANS))
+def test_aggregate_plan_at_the_main_path_shapes(name):
+    (elt, mod16, stride, row_bytes), want = AGG_PLANS[name]
+    assert agg.aggregate_plan(elt, mod16, stride, row_bytes, 0) == want
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+def test_aggregate_plan_fits_the_kernel(elt):
+    """The unit divides every address, stride and width and is the widest
+    that does; 16 lanes a row only for rows of at most 16 units; a pass
+    covers a row unless the row is wider than 128 units."""
+    for d in (1, 3, 7, 16, 33, 128, 130, 600, 602, 1204, 4096):
+        for mod16 in range(0, 16, elt):
+            for out_mod16 in (0, 8):
+                row_bytes = d * elt
+                stride = row_bytes + 2 * mod16
+                unit, lanes, kc = agg.aggregate_plan(elt, mod16, stride,
+                                                     row_bytes, out_mod16)
+                counts = (mod16, stride, row_bytes, out_mod16)
+                assert unit >= elt and unit in (2, 4, 8, 16)
+                assert all(n % unit == 0 for n in counts)
+                assert unit == 16 or unit == elt or not all(
+                    n % (2 * unit) == 0 for n in counts)
+                units = row_bytes // unit
+                assert (lanes, kc) == (16, 1) if units <= 16 else lanes == 32
+                assert lanes * kc >= units or kc == 4
+
+
+@pytest.mark.parametrize("elt,counts,want", [
+    (4, (0, 512, 512, 0), 16), (4, (0, 2408, 2408, 0), 8),
+    (2, (0, 1204, 1204, 0), 4), (2, (2, 14, 14, 0), 2),
+    (4, (4, 2408, 2400, 0), 4), (2, (0, 256, 256, 8), 8),
+    (4, (0, 0, 0, 0), 16)])
+def test_widest_unit(elt, counts, want):
+    """The row gather's and the gather-reduce's unit: cached (b)'s 602-wide
+    float32 rows take 8 bytes, the microbench's 128-wide rows 16."""
+    assert agg.widest_unit(elt, *counts) == want
+
+
+def test_kernel_ab_needs_a_card():
+    """The kernel A/B tool refuses to time anything without a card."""
+    if torch.cuda.is_available():
+        pytest.skip("with a card the tool would run its timings")
+    from graphsage_torch import kernel_ab
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        kernel_ab.main(["--baseline", "build/parent"])
+
+
 # ------------------------------------------------------------ on the card
 
 def _card():
@@ -381,6 +465,134 @@ def test_gather_rows_takes_strided_views_on_card(dtype, offset):
     i = torch.from_numpy(idx).to(dev)
     assert torch.equal(gather.gather_rows(view, i),
                        view.index_select(0, i.long()))
+
+
+NEW_GATHER_WIDTHS = [1, 7, 128, 130, 602, 1204]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", NEW_GATHER_WIDTHS)
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_bit_equal_at_every_offset_on_card(dtype, offset, d):
+    """Table views at element offsets 0-3 (every 16-byte alignment of the
+    source rows against the output rows), J from one id to more than one
+    wave of blocks."""
+    dev = _card()
+    rng = np.random.RandomState(d + offset)
+    m = 3000
+    wide = torch.from_numpy(rng.randn(m, d + 3).astype(np.float32)).to(
+        dev, dtype)
+    view = wide[:, offset:offset + d]
+    # narrow rows pack many rows a warp: a million ids is over one wave
+    for j in (1, 33, 40_000) + ((1_000_000,) if d < 128 else ()):
+        i = torch.from_numpy(rng.randint(0, m, j).astype(np.int32)).to(dev)
+        got = gather.gather_rows_kernel(view, i)
+        torch.cuda.synchronize()
+        assert torch.equal(got, view.index_select(0, i.long())), (j, d)
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_a_plan_that_does_not_fit_on_card():
+    """A unit that does not divide the rows (2408-byte rows at 16), is not
+    a unit (3, 32) or is narrower than an element (2 in float32), and for
+    the gather-reduce 16 lanes on a row of more than 16 units or an unknown
+    units-a-pass, are refused before any launch."""
+    dev = _card()
+    t = torch.randn(10, 602, device=dev)
+    i = torch.zeros(4, dtype=torch.int32, device=dev)
+    idx = torch.zeros(4, 3, dtype=torch.int32, device=dev)
+    mask = torch.ones(4, 3, device=dev)
+    out = torch.empty(4, 602, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = build.load_library("gather")
+    for unit in (16, 3, 32, 2):
+        assert rows.gs_gather_rows(0, dev.index or 0, t.data_ptr(), 602,
+                                   i.data_ptr(), out.data_ptr(), 4, 602,
+                                   unit, stream) != 0
+    reduce = build.load_library("aggregate")
+    for unit, lanes, kc in ((16, 32, 4), (2, 32, 4), (8, 16, 1), (8, 32, 3),
+                            (8, 8, 1)):
+        for fn in (reduce.gs_gather_mean, reduce.gs_gather_max):
+            assert fn(0, dev.index or 0, t.data_ptr(), 602, idx.data_ptr(),
+                      mask.data_ptr(), out.data_ptr(), 4, 3, 602, unit,
+                      lanes, kc, stream) != 0
+    torch.cuda.synchronize()
+
+
+REDUCE_WIDTHS = [128, 130, 600, 602, 1204]
+REDUCE_SLOTS = [1, 10, 11, 32, 45]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", REDUCE_SLOTS)
+@pytest.mark.parametrize("d", REDUCE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["mean", "max"])
+def test_gather_reduce_matches_plain_at_new_shapes_on_card(kind, dtype, d,
+                                                           s):
+    """Widths that take 16-, 8-, 4- and 2-byte units, slot counts on both
+    sides of a slot group, U from one row to fewer blocks than SMs."""
+    dev = _card()
+    rng = np.random.RandomState(d * 100 + s)
+    m = 700
+    e = torch.from_numpy(rng.randn(m, d).astype(np.float32)).to(dev, dtype)
+    kernel = agg.mean_aggregate if kind == "mean" else agg.max_aggregate
+    plain = (agg.mean_aggregate_plain if kind == "mean"
+             else agg.max_aggregate_plain)
+    for u in (1, 37, 131, 1000):
+        i = torch.from_numpy(rng.randint(0, m, (u, s)).astype(np.int32)).to(
+            dev)
+        msk = torch.from_numpy((rng.rand(u, s) < 0.7).astype(np.float32)).to(
+            dev)
+        got = kernel(e, i, msk)
+        torch.cuda.synchronize()
+        if kind == "max":
+            assert torch.equal(got, plain(e, i, msk)), u
+        else:
+            _assert_close(got, plain(e, i, msk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["mean", "max"])
+def test_masked_slot_rows_never_reach_the_output_on_card(kind, dtype):
+    """Rows holding inf and nan, referenced only by masked slots: the
+    kernel reads no row for a masked slot, so the output equals the plain
+    version on a table with those rows zeroed."""
+    dev = _card()
+    rng = np.random.RandomState(9)
+    m, u, s, d = 60, 50, 11, 602
+    embed = rng.randn(m, d).astype(np.float32)
+    idx = rng.randint(0, m, (u, s)).astype(np.int32)
+    mask = (rng.rand(u, s) < 0.7).astype(np.float32)
+    bad = [3, 17, 41]
+    idx[:, 4] = bad[0]
+    mask[:, 4] = 0.0
+    idx[np.isin(idx, bad) & (mask > 0)] = 0
+    idx[::3, 7] = bad[1]
+    mask[::3, 7] = 0.0
+    idx[1, :] = bad[2]
+    mask[1, :] = 0.0                              # a row with no valid slot
+    poisoned = embed.copy()
+    poisoned[bad[0]] = np.inf
+    poisoned[bad[1]] = np.nan
+    poisoned[bad[2], ::2] = -np.inf
+    clean = embed.copy()
+    clean[bad] = 0.0
+    i, msk = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
+    kernel = agg.mean_aggregate if kind == "mean" else agg.max_aggregate
+    plain = (agg.mean_aggregate_plain if kind == "mean"
+             else agg.max_aggregate_plain)
+    got = kernel(torch.from_numpy(poisoned).to(dev, dtype), i, msk)
+    want = plain(torch.from_numpy(clean).to(dev, dtype), i, msk)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert not got[1].any()
+    if kind == "max":
+        assert torch.equal(got, want)
+    else:
+        _assert_close(got, want)
 
 
 @pytest.mark.gpu
