@@ -55,7 +55,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    [3 x 1000] H=100 case with zero rows: forward (float32 and bfloat16)
    and gradient through PairScores against the plain version, and a kernel
    row like the aggregate kernels' (yardstick: torch.mm of F.normalize'd
-   rows).  gather_mean at the step's two layer shapes: the forward kernel
+   rows); cached (c)'s step shape has its own row in phase 7.
+   gather_mean at the step's two layer shapes: the forward kernel
    row and the scatter-add gradient against autograd through the plain
    version.
 6. End to end through the entry points, on powerlaw:2000:10000: the CLI
@@ -88,8 +89,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    (median of 20 steps on one cache, min, max); the device time by kernel
    and the idle share over one epoch (torch.profiler); val F1.  Then
    gather_mean / gather_max kernel rows at the refresh shape (idx [100000,
-   10] over [100000, 602]) and gather_rows rows at (a)'s full-table and
-   (b)'s per-occurrence gathers, equal to index_select bit for bit.
+   10] over [100000, 602]), gather_rows rows at (a)'s full-table and (b)'s
+   per-occurrence gathers, equal to index_select bit for bit, and a
+   pair_scores row at (c)'s own step shape (the score block one recorded
+   step hands the kernel: B from its target_rows, U from its batch, with
+   (c)'s launch count), with phase 5's checks.
 8. The port's microbench (graphsage_torch.microbench) at
    tools/pallas_microbench.py's shapes: row gather, gather+mean,
    scatter-add (unsorted and presorted) and the [512 x 2048] score block,
@@ -985,16 +989,28 @@ def cached_config(label: str, method: str, agg_func: str, gcn: bool,
         f"steps on one cache; min {min(times):.6f}, max {max(times):.6f}); "
         f"fit loss curve " + " ".join(f"{x:.6f}" for x in losses))
 
-    # -------- the gathers one step makes, for the kernel rows
-    seen = []
+    # -------- the gathers and the score block one step makes, for the
+    # kernel rows
+    seen, scores_seen = [], []
 
     def gather_rec(table, idx):
         seen.append((table.detach(), idx))
         return gather.gather_rows(table, idx)
 
-    with patched(cached, gather_rows=gather_rec):
+    def scores_rec(emb, target_rows, eps=1e-8):
+        scores_seen.append((emb.detach(), target_rows))
+        return sddmm.PairScores.apply(emb, target_rows, eps)
+
+    with patched(cached, gather_rows=gather_rec), \
+            patched(sddmm, pair_scores=scores_rec):
         step(tr.params, tr.feats, *cache, tr.hop, *last[0])
     torch.cuda.synchronize()
+    batch, _, _, pairs = last[0]
+    if launches["pair_scores"]:
+        # B and U as predicted_launches reads them from the step
+        (emb, target_rows), = scores_seen
+        assert (target_rows.shape[0], emb.shape[0]) == (
+            pairs["target_rows"].shape[0], batch.shape[0])
 
     # -------- device profile of one epoch (with its refresh)
     tr.train_epoch()
@@ -1009,14 +1025,15 @@ def cached_config(label: str, method: str, agg_func: str, gcn: bool,
     val_f1 = tr.history[-1]["val_f1"]
     log(f"{tag} val F1 {val_f1:.6f}; history {tr.history}")
     return {"label": label, "launches": launches, "refresh": first,
-            "gathers": seen, "feats": tr.feats,
+            "gathers": seen, "scores": scores_seen, "feats": tr.feats,
             "summary": {"refresh_ms": refresh_ms, "ms_per_step": ms_per_step,
                         "val_f1": val_f1, "steps": steps}}
 
 
 def cached_rows(results: dict) -> list:
     """gather_mean / gather_max at the refresh shape, gather_rows at (a)'s
-    full-table and (b)'s per-occurrence shapes."""
+    full-table and (b)'s per-occurrence shapes, pair_scores at (c)'s step
+    shape."""
     rows = []
     for label, name in (("a", "gather_mean"), ("b", "gather_max")):
         res = results[label]
@@ -1033,6 +1050,11 @@ def cached_rows(results: dict) -> list:
         rows.append(gather_row(f"cached ({label}) {what}, {idx.shape[0]} ids "
                                f"over {list(table.shape)}", table, idx,
                                res["launches"]["gather_rows"]))
+    (emb, target_rows), = results["c"]["scores"]
+    rows.append(scores_row(f"cached (c) step, {target_rows.shape[0]} x "
+                           f"{emb.shape[0]}, H {emb.shape[1]}", emb,
+                           target_rows,
+                           results["c"]["launches"]["pair_scores"]))
     return rows
 
 

@@ -1,4 +1,5 @@
-"""Time two trees' row-gather and gather-reduce kernels on one card, in turns.
+"""Time two trees' kernels on one card, in turns: the row gather, the
+gather-reduce (mean, max) and the pair-score block.
 
     python -m graphsage_torch.kernel_ab --baseline DIR [--out FILE]
 
@@ -19,7 +20,9 @@ from the 100,000-node, 1,000,000-edge power-law graph (``synthetic_power_law``,
 seed 0): the serving slot table at width 32 (``RandomState(99)``), and a
 refresh-like table of 10 sampled neighbours, self masked
 (``RandomState(5)``).  The compact and cached gathers take uniform random
-ids at the main path's sizes; embedding values are random (they do not move
+ids at the main path's sizes, the score blocks uniform random targets at
+theirs (the ragged block with zero rows and a zero target, as
+``chip_smoke.py`` has it); embedding values are random (they do not move
 the time).
 """
 
@@ -35,7 +38,8 @@ from pathlib import Path
 
 N, FEATS, HIDDEN, WIDTH, FANOUT = 100_000, 602, 128, 32, 10
 # name -> (kernel, table (rows, width, dtype, row stride, column offset),
-#          index table): what each row times
+#          index table, or a score block's targets and zero rows): what
+#          each row times
 ROWS = {
     "gather_mean serving f32": ("mean", (N, HIDDEN, "float32", 2 * HIDDEN,
                                          HIDDEN), "serving"),
@@ -60,6 +64,18 @@ ROWS = {
     "gather_rows cached (b) per occurrence": ("rows", (N, FEATS, "float32",
                                                        FEATS, 0),
                                               "per_occurrence"),
+    "pair_scores compact step 20 x 1024": ("scores", (1024, HIDDEN,
+                                                      "float32", HIDDEN, 0),
+                                           "scores_compact"),
+    "pair_scores cached (c) step 20 x 1024": ("scores", (1024, HIDDEN,
+                                                         "float32", HIDDEN,
+                                                         0),
+                                              "scores_cached"),
+    "pair_scores 512 x 2048": ("scores", (2048, HIDDEN, "float32", HIDDEN,
+                                          0), "scores_512"),
+    "pair_scores ragged 3 x 1000, H 100": ("scores", (1000, 100, "float32",
+                                                      100, 0),
+                                           "scores_ragged"),
 }
 
 
@@ -86,6 +102,12 @@ def make_inputs(path: Path) -> None:
         mask = torch.from_numpy((rng.rand(*shape) < 0.8).astype(np.float32))
         return idx, mask
 
+    def targets(u, b, zero=()):
+        t = rng.randint(0, u, b).astype(np.int32)
+        if zero:
+            t[0] = zero[0]                # a target of zero norm
+        return torch.from_numpy(t), torch.tensor(zero, dtype=torch.long)
+
     torch.save({
         "serving": slots(WIDTH, 99),
         "refresh": slots(FANOUT, 5),
@@ -94,6 +116,10 @@ def make_inputs(path: Path) -> None:
         "microbench": uniform(N, (45056 * 11,)),
         "full_table": uniform(N, (32768 * 11,)),
         "per_occurrence": uniform(N, (512 * 11,)),
+        "scores_compact": targets(1024, 20),
+        "scores_cached": targets(1024, 20),
+        "scores_512": targets(2048, 512),
+        "scores_ragged": targets(1000, 3, (0, 17, 999)),
     }, path)
 
 
@@ -103,7 +129,7 @@ def worker(tree: str, inputs: str) -> None:
     import torch
 
     from graphsage_torch.ops import aggregate as agg
-    from graphsage_torch.ops import gather
+    from graphsage_torch.ops import gather, sddmm
 
     # this tree's timing helpers, whichever tree the kernels come from
     spec = importlib.util.spec_from_file_location(
@@ -121,7 +147,11 @@ def worker(tree: str, inputs: str) -> None:
             getattr(torch, dtype))
         table = base[:, offset:offset + d]
         idx, mask = tables[key]
-        if kind == "rows":
+        if kind == "scores":             # (target rows, zero rows)
+            table[mask] = 0.0
+            fn, symbol = (lambda: sddmm.pair_scores_kernel(table, idx),
+                          "pair_scores_kernel")
+        elif kind == "rows":
             fn, symbol = (lambda: gather.gather_rows_kernel(table, idx),
                           "gather_rows_kernel")
         else:

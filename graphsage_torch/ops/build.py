@@ -43,10 +43,11 @@ _AGG_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # scores: (dtype, device, emb, emb_stride, target_rows, out, B, U, H, eps,
-#          stream)
+#          tb, tu, unit, hs, vec, stream)
 _SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # rows: (dtype, device, table, table_stride, idx, out, rows, D, unit,
 #        stream)
 _ROWS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,

@@ -12,7 +12,8 @@ block would be mostly waste, per pair (``gathered_pair_cosines``);
 - ``dense_pair_scores``: the plain PyTorch block, on any device; the CPU
   path and the reference the kernel is held against on the card.
 - ``pair_scores_kernel``: the hand-written CUDA kernel
-  (``graphsage_torch/csrc/sddmm.cu``), a CUDA tensor only.
+  (``graphsage_torch/csrc/sddmm.cu``), a CUDA tensor only; its launch plan
+  (tiles, copy unit, stage and store width) is ``scores_plan``'s.
 - ``PairScores``: the block with the analytic backward of the JAX package's
   ``_pallas_scores_bwd`` (``sddmm.py:63-75``).  Its forward is the kernel on
   a CUDA tensor and the plain version on a CPU tensor.
@@ -26,13 +27,65 @@ comes back in the emb dtype.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from graphsage_torch.ops import build
-from graphsage_torch.ops.aggregate import _DTYPE_CODES, _INT_MAX, LAUNCHES
+from graphsage_torch.ops.aggregate import (_DTYPE_CODES, _INT_MAX, LAUNCHES,
+                                           widest_unit)
 
 _EPS = 1e-8
-_MAX_B = 65535 * 32          # the kernel's grid: 65535 tiles of 32 targets
+_MAX_B = 65535 * 64          # the kernel's grid: 65535 tiles of 64 targets
+
+SMEM_BUDGET = 113 * 1024     # shared memory a block, so that two fit an SM
+MAX_STAGE = 256              # widest stage of a row split into stages
+
+
+class ScoresPlan(NamedTuple):
+    """Launch plan of ``pair_scores_kernel``."""
+    tb: int       # targets a tile
+    tu: int       # table rows a tile
+    unit: int     # bytes of one copy into shared memory (16, 8, 4, 2)
+    hs: int       # columns a stage (all H in one stage where it fits)
+    vec: int      # elements a store (4 where U is a multiple of 4, else 1)
+
+
+def scores_smem(tb: int, tu: int, elt: int, h: int, hs: int) -> int:
+    """Dynamic shared memory of a block (``sddmm.cu::smem_bytes``): the
+    float32 stage buffers, two where the row takes several stages (bfloat16:
+    one float32 buffer and the raw stage buffers), rows padded to an odd
+    number of 16-byte chunks; or the [tb, tu + 4] output tile if larger."""
+    rows = tb + tu
+    nbuf = 2 if h > hs else 1
+    fbuf = rows * (((hs + 3) // 4) | 1) * 16
+    stage = nbuf * fbuf if elt == 4 else fbuf + nbuf * rows * hs * 2
+    return max(stage, tb * (tu + 4) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def scores_plan(b: int, u: int, h: int, elt: int, stride_bytes: int,
+                base_align: int) -> ScoresPlan:
+    """The tile, copy unit, stage width and store width for a [B, U] block
+    over rows of h elements of ``elt`` bytes, ``stride_bytes`` apart, the
+    table's address ``base_align`` mod 16.
+
+    B <= 32 takes tiles of 8 targets x 8 table rows (the 20 x 1024 step:
+    384 blocks), B > 32 tiles of 64 x 64 (512 x 2048: 256 blocks), the two
+    tiles ``sddmm.cu::by_tile`` launches.  The
+    unit is the widest that divides the address, the row stride and the
+    row width.  A row of at most 256 columns takes one stage where that
+    fits in ``SMEM_BUDGET``; a wider one stages of the most columns (a
+    multiple of 32, at most 256) whose two buffers fit."""
+    tb = tu = 8 if b <= 32 else 64
+    unit = widest_unit(elt, base_align, stride_bytes, h * elt)
+    hs = -(-h // 8) * 8
+    if hs > MAX_STAGE or scores_smem(tb, tu, elt, h, hs) > SMEM_BUDGET:
+        hs = MAX_STAGE
+        while hs > 32 and scores_smem(tb, tu, elt, h, hs) > SMEM_BUDGET:
+            hs -= 32
+    return ScoresPlan(tb, tu, unit, hs, 4 if u % 4 == 0 else 1)
 
 
 def _unit_rows(emb: torch.Tensor, eps: float):
@@ -84,15 +137,19 @@ def pair_scores_kernel(emb: torch.Tensor, target_rows: torch.Tensor,
     _check_kernel_args(emb, target_rows)
     u, h = emb.shape
     b = target_rows.shape[0]
+    if h == 0:                  # no columns: every score is 0
+        return torch.zeros((b, u), dtype=emb.dtype, device=emb.device)
     out = torch.empty((b, u), dtype=emb.dtype, device=emb.device)
     if b == 0 or u == 0:
         return out
     lib = build.load_library("sddmm")
+    elt = emb.element_size()
+    ptr = emb.data_ptr()
+    plan = scores_plan(b, u, h, elt, emb.stride(0) * elt, ptr % 16)
     stream = torch.cuda.current_stream(emb.device).cuda_stream
-    rc = lib.gs_pair_scores(_DTYPE_CODES[emb.dtype], emb.device.index,
-                            emb.data_ptr(), emb.stride(0),
-                            target_rows.data_ptr(), out.data_ptr(), b, u, h,
-                            eps, stream)
+    rc = lib.gs_pair_scores(_DTYPE_CODES[emb.dtype], emb.device.index, ptr,
+                            emb.stride(0), target_rows.data_ptr(),
+                            out.data_ptr(), b, u, h, eps, *plan, stream)
     if rc != 0:
         raise RuntimeError(f"pair_scores launch failed: CUDA error {rc} "
                            f"({lib.gs_error_string(rc).decode()})")

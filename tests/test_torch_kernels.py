@@ -21,6 +21,9 @@ fixed order).  The row gather is a copy: equal to ``index_select`` bit for
 bit.
 """
 
+import ctypes
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -348,6 +351,105 @@ def test_score_library_builds_beside_the_aggregate_library():
     assert build.library_path("sddmm") != build.library_path("aggregate")
 
 
+def test_score_entry_point_takes_the_plan():
+    """gs_pair_scores takes (dtype, device, emb, emb_stride, target_rows,
+    out, B, U, H, eps), then the plan's five ints (tb, tu, unit, hs, vec),
+    then the stream."""
+    args, restype = build._SIGNATURES["sddmm"]["gs_pair_scores"]
+    assert restype is ctypes.c_int
+    assert len(args) == 10 + len(sddmm.ScoresPlan._fields) + 1 == 16
+    assert args[9] is ctypes.c_float
+    assert args[10:15] == [ctypes.c_int] * 5
+    assert args[15] is ctypes.c_void_p and args[3] is ctypes.c_int64
+
+
+# (B, U, H, elt, row stride bytes, address mod 16) -> plan, at the main
+# path's shapes
+SCORE_PLANS = {
+    "compact step 20 x 1024": ((20, 1024, 128, 4, 512, 0),
+                               (8, 8, 16, 128, 4)),
+    "cached (c) step 20 x 1024": ((20, 1024, 128, 4, 512, 0),
+                                  (8, 8, 16, 128, 4)),
+    "512 x 2048": ((512, 2048, 128, 4, 512, 0), (64, 64, 16, 128, 4)),
+    "ragged 3 x 1000, H 100": ((3, 1000, 100, 4, 400, 0),
+                               (8, 8, 16, 104, 4)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SCORE_PLANS))
+def test_scores_plan_at_the_main_path_shapes(name):
+    args, want = SCORE_PLANS[name]
+    plan = sddmm.scores_plan(*args)
+    assert tuple(plan) == want
+    b, u = args[:2]
+    blocks = math.ceil(u / plan.tu) * math.ceil(b / plan.tb)
+    assert blocks >= 125      # up from 16 (compact, ragged) and 64 tiles
+
+
+@pytest.mark.parametrize("b", [1, 3, 8, 9, 20, 32, 33, 70, 512, 5000])
+def test_scores_plan_tiles_fill_the_card_where_u_allows(b):
+    """8 x 8 tiles at B <= 32 and 64 x 64 above, the kernel's two tiles;
+    at least 132 blocks wherever U gives that many tiles."""
+    for u in (1, 7, 100, 1000, 1024, 1056, 2048, 4096, 100_000):
+        plan = sddmm.scores_plan(b, u, 128, 4, 512, 0)
+        assert (plan.tb, plan.tu) == ((8, 8) if b <= 32 else (64, 64))
+        blocks = math.ceil(u / plan.tu) * math.ceil(b / plan.tb)
+        if u >= 132 * plan.tu:
+            assert blocks >= 132, (u, plan)
+
+
+@pytest.mark.parametrize("elt", [2, 4])
+@pytest.mark.parametrize("b", [3, 20, 512])
+def test_scores_plan_shared_memory_fits(elt, b):
+    """The block's shared memory stays within the two-blocks-an-SM budget
+    at every width; a row of at most 256 columns takes one stage where that
+    fits, else stages of a multiple of 32 columns, at most 256, whose width
+    the copy unit divides."""
+    for h in (1, 7, 33, 100, 128, 129, 256, 602, 1000, 2000, 8192):
+        plan = sddmm.scores_plan(b, 2048, h, elt, h * elt, 0)
+        smem = sddmm.scores_smem(plan.tb, plan.tu, elt, h, plan.hs)
+        assert smem <= sddmm.SMEM_BUDGET < 232448 - 8 * plan.tb  # 227 KB
+        assert plan.hs % 8 == 0 and (plan.hs * elt) % plan.unit == 0
+        assert plan.hs <= sddmm.MAX_STAGE
+        one = -(-h // 8) * 8
+        if plan.hs >= h:
+            assert plan.hs == one                     # one stage
+        else:
+            assert plan.hs % 32 == 0
+            assert one > sddmm.MAX_STAGE or sddmm.scores_smem(
+                plan.tb, plan.tu, elt, h, one) > sddmm.SMEM_BUDGET
+    # the card tests' wide rows take several stages at every tile
+    for b_, u in ((1, 5), (20, 1001), (33, 300), (512, 2048)):
+        assert sddmm.scores_plan(b_, u, 2000, elt, 2000 * elt, 0).hs < 2000
+
+
+@pytest.mark.parametrize("elt,h,stride,mod16,want", [
+    (4, 128, 512, 0, 16), (4, 128, 1024, 0, 16),   # compact, z[:, H:] view
+    (4, 100, 400, 0, 16), (4, 128, 512, 4, 4),     # offset view
+    (4, 33, 132, 0, 4), (4, 602, 2408, 0, 8),
+    (2, 128, 256, 0, 16), (2, 128, 256, 2, 2),     # bf16 at odd elements
+    (2, 7, 14, 0, 2), (2, 100, 200, 8, 8), (2, 602, 1204, 0, 4)])
+def test_scores_plan_copy_unit(elt, h, stride, mod16, want):
+    """The copy unit is the widest of 16, 8, 4 (2 for bfloat16) bytes that
+    divides the table's address, its row stride and its row width."""
+    plan = sddmm.scores_plan(20, 1024, h, elt, stride, mod16)
+    assert plan.unit == want
+    assert plan.unit >= elt
+    assert all(n % plan.unit == 0 for n in (stride, mod16, h * elt))
+
+
+def test_scores_plan_store_width_and_cache():
+    """Four elements a store where U is a multiple of 4; the plan is
+    cached, so a launch at a shape seen before costs one lookup."""
+    assert sddmm.scores_plan(20, 1000, 128, 4, 512, 0).vec == 4
+    assert sddmm.scores_plan(20, 1001, 128, 4, 512, 0).vec == 1
+    sddmm.scores_plan.cache_clear()
+    sddmm.scores_plan(20, 1024, 128, 4, 512, 0)
+    sddmm.scores_plan(20, 1024, 128, 4, 512, 0)
+    info = sddmm.scores_plan.cache_info()
+    assert (info.hits, info.misses) == (1, 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(SCORE_CASES))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -388,6 +490,85 @@ def test_pair_scores_gradient_on_card(case):
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
     assert not grads[0][:, :h].any()
+
+
+def _scores_input(rng, u, h, b, dev, dtype, offset=0):
+    """emb [u, h] (a view at ``offset`` columns into rows of h + 3), with
+    zero rows, and b targets, the first of them a zero row."""
+    wide = rng.randn(u, h + 3).astype(np.float32)
+    zero = sorted({0, u // 2, u - 1})
+    wide[zero] = 0.0
+    t = rng.randint(0, u, b).astype(np.int32)
+    t[0] = zero[-1]
+    emb = torch.from_numpy(wide).to(dev, dtype)[:, offset:offset + h]
+    return emb, torch.from_numpy(t).to(dev), zero
+
+
+# H from one column to a row wider than one stage (2000 takes several at
+# every tile), B at every target tile, U below one table tile and not a
+# multiple of one
+SCORE_WIDTHS = [1, 7, 33, 100, 128, 129, 2000]
+SCORE_TARGETS = [1, 20, 33, 512]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", SCORE_TARGETS)
+@pytest.mark.parametrize("h", SCORE_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scores_matches_plain_at_new_shapes_on_card(dtype, h, b):
+    dev = _card()
+    rng = np.random.RandomState(h * 1000 + b)
+    for u in (5, 1001):
+        emb, tr, zero = _scores_input(rng, u, h, b, dev, dtype)
+        got = sddmm.pair_scores_kernel(emb, tr)
+        torch.cuda.synchronize()
+        _assert_close(got, sddmm.dense_pair_scores(emb, tr), bf16_atol=1e-5)
+        assert not got[:, zero].any() and not got[0].any(), (u, h, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h", [7, 100, 128, 2000])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_scores_takes_strided_views_on_card(dtype, offset, h):
+    """Views at element offsets 0-3 into rows of h + 3: every copy unit
+    from 16 bytes down to 4 (float32) or 2 (bfloat16)."""
+    dev = _card()
+    rng = np.random.RandomState(offset * 10 + h)
+    for b, u in ((20, 1024), (70, 300)):
+        emb, tr, _ = _scores_input(rng, u, h, b, dev, dtype, offset)
+        got = sddmm.pair_scores_kernel(emb, tr)
+        torch.cuda.synchronize()
+        _assert_close(got, sddmm.dense_pair_scores(emb, tr), bf16_atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_pair_scores_refuses_a_plan_that_does_not_fit_on_card():
+    """A unit that does not divide the rows (16 bytes on 28-byte rows), 2
+    bytes in float32, a tile the kernel does not have, a stage width that is
+    not a multiple of 8 or is over 256, four elements a store where U is not
+    a multiple of 4, and shared memory past a block's limit (two 256-column
+    stages of 192 rows), are refused before any launch."""
+    dev = _card()
+    emb = torch.randn(10, 7, device=dev)
+    t = torch.zeros(3, dtype=torch.int32, device=dev)
+    out = torch.empty(3, 10, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = build.load_library("sddmm")
+
+    def call(tb=8, tu=8, unit=4, hs=8, vec=1, h=7, e=emb):
+        return lib.gs_pair_scores(0, dev.index or 0, e.data_ptr(),
+                                  e.stride(0), t.data_ptr(), out.data_ptr(),
+                                  3, 10, h, 1e-8, tb, tu, unit, hs, vec,
+                                  stream)
+
+    assert call() == 0
+    wide = torch.randn(10, 20000, device=dev)
+    for bad in (dict(unit=16), dict(unit=2), dict(tb=12), dict(tu=32),
+                dict(hs=12), dict(hs=0), dict(hs=264), dict(vec=4),
+                dict(vec=2), dict(tb=64, tu=128, hs=256, h=20000, e=wide)):
+        assert call(**bad) != 0, bad
+    torch.cuda.synchronize()
 
 
 # ------------------------------------------------------------ row gather
