@@ -13,14 +13,19 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 3. Serving at full width: the 100,000-node, 1,000,000-edge power-law graph
    with 602 features, a width-32 sampled adjacency, a 2-layer GraphSAGE with
    hidden 128, weights from a seeded torch.Generator; for MEAN float32, MEAN
-   bfloat16 and MAX bfloat16:
+   bfloat16, MAX bfloat16 and LSTM float32 (a cell a layer, layer 1's 602
+   wide), and, after phase 7, the cached-LSTM hybrid that (d) trained and
+   exported (served with lstm_hybrid, from its bundle):
    - launch counts set to 0, then the main path a user calls:
      InferenceSession.embeddings(), predict/log_probs on three node
      batches, score_pairs, and an export_bundle -> from_bundle round trip
-     that must give identical embeddings and predictions; counts read;
+     that must give identical embeddings and predictions; counts read and
+     held equal to those the code's rule predicts (one gather_mean /
+     gather_max a MEAN / MAX layer; one gather_rows a block of an LSTM
+     layer, infer.card_block's blocks);
    - embed-all time (host clock around a synchronised call, warm; median,
-     min and max of 20), and the device's busy time by kernel over one
-     embed-all (torch.profiler);
+     min and max of 20, of 5 for LSTM), and the device's busy time by
+     kernel over one embed-all (torch.profiler);
    - the full embedding table against the same session run through the
      plain versions on the card;
    - each kernel alone at that layer's shapes against its plain version,
@@ -28,7 +33,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
      events over many warm launches of the wrapper; ``device_ms``, the
      kernel's own device time a launch (torch.profiler); ``host_us``, the
      wrapper's host time a call; beside its byte bound, the plain version's
-     time and a one-call library yardstick (its ms and device_ms).
+     time and a one-call library yardstick (its ms and device_ms); for LSTM
+     gather_rows at one layer-1 block.
 
 4. Training at full width (compact pipeline, the CLI's default), on the
    same graph: 2-layer MEAN GraphSAGE, hidden 128, fanout 10, b_sz 20, lr
@@ -36,17 +42,21 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    is cut to its first 1,000 nodes, so an epoch is 50 steps; negatives are
    "uniform" (GS_EXACT_NEG_BUDGET_S=0), because "auto" chooses by the
    host's core count.  The graph, the features and the widths are not cut.
-   For plus_unsup (normal loss, 100 negatives) and for sup:
+   For plus_unsup (normal loss, 100 negatives) and sup MEAN, sup MAX gcn,
+   and plus_unsup LSTM:
    - launch counts set to 0, then one epoch through Trainer.fit
-     (train_epoch + evaluate); counts read: gather_mean 2 a step plus 2 per
-     embedding of val (and of test, when val F1 improved), pair_scores 1 a
-     step under plus_unsup and 0 under sup;
+     (train_epoch + evaluate); counts read and held equal to the
+     prediction of compact_launches: the layer kernel (gather_mean,
+     gather_max, or gather_rows for the LSTM's slot gather) 2 a step plus 2
+     per embedding of val (and of test, when val F1 improved), pair_scores
+     1 a step under plus_unsup, and for MAX one tie-gather gather_rows a
+     step (layer 2's backward);
    - the same epoch through the plain versions on the card, from the same
      initial params and RandomState (so the same host batches), in
      lockstep: each plain step starts from the kernel run's params of that
      step, and its loss and updated params are held to the tolerances
-     below (the last step's are the final params); a free-running plain
-     epoch is printed beside it, not asserted;
+     below (the last step's are the final params); for MEAN a
+     free-running plain epoch is printed beside it, not asserted;
    - ms/step (host clock around each synchronised step; median of steps 6
      to 50, min, max), the loss curve, val F1, and the device's busy time
      by kernel and idle share over a 5-step epoch (torch.profiler).
@@ -58,7 +68,11 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    rows); cached (c)'s step shape has its own row in phase 7.
    gather_mean at the step's two layer shapes: the forward kernel
    row and the scatter-add gradient against autograd through the plain
-   version.
+   version.  gather_max at the MAX step's two layer shapes (exact), and
+   its tie-splitting backward (agg.max_aggregate_backward: the gather_rows
+   tie gather, the tie test, index_add_) against autograd through the plain
+   version, as a row of the whole composition; gather_rows at the LSTM
+   step's layer-1 slot gather.
 6. End to end through the entry points, on powerlaw:2000:10000: the CLI
    trains plus_unsup for one epoch on the card and exports a bundle
    (graphsage_torch.cli.run, what ``main`` runs); the bundle's params equal
@@ -69,7 +83,7 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    gather_rows, gather_mean and pair_scores.
 7. Cached training at full width (``--pipeline cached``, CachedTrainer) on
    the same graph and features, table_cap 32 (``RandomState(824)``), 2
-   layers, hidden 128, fanout 10, lr 0.7, seed 824, float32, three
+   layers, hidden 128, fanout 10, lr 0.7, seed 824, float32, four
    configurations:
    (a) sup MEAN, plain batches of 32768 over the whole train split (2 steps
        an epoch, the tail wrap-padded and masked), 3 epochs with
@@ -79,7 +93,13 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
        refresh;
    (c) plus_unsup MEAN, extended batches of 20, the train split cut to
        1,000 nodes (50 steps), uniform negatives: the full-table branch and
-       the pair_scores block.
+       the pair_scores block;
+   (d) sup LSTM, the cached-LSTM hybrid (MEAN leaf cache, the live layer-2
+       cell over the tree-contiguous [32768, 11, 128] sequence), plain
+       batches of 32768 over the whole train split, 2 epochs: the JAX
+       bench's powerlaw100k_b32768_cached_bfloat16_lstm_hybrid row in
+       float32.  Its layer-0 cell must come out of the fit unchanged; the
+       trained model is exported for phase 3.
    For each: launch counts set to 0, then CachedTrainer.fit, every step,
    refresh and sampler draw recorded; counts read and held equal to the
    counts predicted from the code; the first refresh against its plain
@@ -134,13 +154,13 @@ import torch
 import torch.nn.functional as F
 
 from graphsage_torch import cli, infer, microbench
-from graphsage_torch.convert import flatten_params
+from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
 from graphsage_torch.microbench import (F32_OPS_PER_S, HBM_BYTES_PER_S,
                                         cuda_ms, times)
 from graphsage_torch.models import (GraphSageConfig, graphsage,
-                                    init_classifier, init_graphsage)
+                                    init_classifier, init_graphsage, lstm_agg)
 from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.ops import build, gather, sddmm
@@ -152,7 +172,8 @@ from graphsage_torch.train.trainer import _leaf_params
 
 NODES, EDGES, FEATS, CLASSES, WIDTH, HIDDEN = (100_000, 1_000_000, 602, 16,
                                                32, 128)
-CONFIGS = (("MEAN", "float32"), ("MEAN", "bfloat16"), ("MAX", "bfloat16"))
+CONFIGS = (("MEAN", "float32"), ("MEAN", "bfloat16"), ("MAX", "bfloat16"),
+           ("LSTM", "float32"))
 SOURCE = "graphsage_torch/csrc/aggregate.cu"
 SCORE_SOURCE = "graphsage_torch/csrc/sddmm.cu"
 GATHER_SOURCE = "graphsage_torch/csrc/gather.cu"
@@ -222,10 +243,14 @@ def patched(module, **attrs):
             setattr(module, name, value)
 
 
+@contextlib.contextmanager
 def plain_aggregates():
-    """Serving through the plain versions on the card (the reference run)."""
-    return patched(infer, mean_aggregate=agg.mean_aggregate_plain,
-                   max_aggregate=agg.max_aggregate_plain)
+    """Serving through the plain versions on the card (the reference run):
+    the LSTM's slot gather through index_select."""
+    with patched(infer, mean_aggregate=agg.mean_aggregate_plain,
+                 max_aggregate=agg.max_aggregate_plain), \
+            patched(lstm_agg, gather_rows=gather.gather_rows_plain):
+        yield
 
 
 # ------------------------------------------------------------ small oracle
@@ -329,11 +354,13 @@ def kernel_row(name: str, label: str, embed: torch.Tensor,
 
 
 def timing_note(row: dict) -> str:
+    library = ("library_ms none" if row["library_ms"] is None else
+               f"library_ms {row['library_ms']:.6f} library_device_ms "
+               f"{row['library_device_ms']:.6f}")
     return (f"ms {row['ms']:.6f} device_ms {row['device_ms']:.6f} host_us "
             f"{row['host_us']:.3f} bound_ms {row['bound_ms']:.6f} "
             f"({row['bound_ms'] / row['device_ms']:.0%} of it) plain_ms "
-            f"{row['plain_ms']:.6f} library_ms {row['library_ms']:.6f} "
-            f"library_device_ms {row['library_device_ms']:.6f}")
+            f"{row['plain_ms']:.6f} {library}")
 
 
 # ------------------------------------------------------------ serving
@@ -367,22 +394,39 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
             log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
 
 
-def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
-                 pad, n_valid: int, dev: torch.device) -> tuple[dict, list]:
-    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
-                          agg_func=agg_func, compute_dtype=dtype)
-    gen = torch.Generator().manual_seed(824)
-    params = {"sage": init_graphsage(gen, cfg),
-              "clf": init_classifier(gen, HIDDEN, CLASSES)}
-    kname = "gather_mean" if agg_func == "MEAN" else "gather_max"
-    tag = f"{agg_func} {dtype}"
+def serving_launches(cfg: GraphSageConfig, lstm_hybrid: bool) -> dict:
+    """The launches of one embeddings() call, from the code's rule: one
+    gather_mean / gather_max a MEAN / MAX layer, and a gather_rows a block
+    of an LSTM layer (infer.card_block at the layer's input width)."""
+    want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
+            "gather_rows": 0}
+    itemsize = graphsage.compute_dtype(cfg).itemsize
+    for layer in range(cfg.num_layers):
+        agg_func = "MEAN" if lstm_hybrid and layer == 0 else cfg.agg_func
+        if agg_func == "LSTM":
+            block = infer.card_block("LSTM", NODES, WIDTH + cfg.gcn,
+                                     cfg.layer_input_size(layer), itemsize)
+            want["gather_rows"] += -(-NODES // block)
+        else:
+            want["gather_mean" if agg_func == "MEAN" else "gather_max"] += 1
+    return want
+
+
+def serve_config(tag: str, cfg: GraphSageConfig, params: dict,
+                 feats: torch.Tensor, pad, n_valid: int, dev: torch.device,
+                 lstm_hybrid: bool = False) -> tuple[dict, list]:
+    """Phase 3 for one model: the counted main path, embed_all_ms, the
+    device profile, the table against the plain versions, and the kernel
+    rows at its layers' shapes."""
+    dtype = cfg.compute_dtype
     rng = np.random.RandomState(7)
     batches = [rng.randint(0, NODES, size) for size in (1, 64, 4096)]
 
     # -------- the main path, counted
     agg.reset_launches()
     t0 = time.perf_counter()
-    sess = infer.InferenceSession(params, cfg, feats, pad, device=dev)
+    sess = infer.InferenceSession(params, cfg, feats, pad,
+                                  lstm_hybrid=lstm_hybrid, device=dev)
     emb = sess.embeddings()
     preds = []
     for nodes in batches:
@@ -395,32 +439,36 @@ def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
     assert scores.shape == (100,) and (np.abs(scores) <= 1 + 1e-5).all()
     bundle = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                           "chip_smoke_bundles", tag.replace(" ", "_"))
-    infer.export_bundle(bundle, params, cfg, CLASSES)
+    infer.export_bundle(bundle, params, cfg, CLASSES,
+                        meta={"lstm_hybrid": True} if lstm_hybrid else None)
     again = infer.InferenceSession.from_bundle(bundle, feats, pad,
                                                device=dev)
+    assert again.lstm_hybrid == lstm_hybrid
     np.testing.assert_array_equal(again.embeddings(), emb)
     for nodes, want in zip(batches, preds):
         np.testing.assert_array_equal(again.predict(nodes), want)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = dict(agg.LAUNCHES)
+    # two embeddings() calls, two sessions
+    want = {k: 2 * v for k, v in serving_launches(cfg, lstm_hybrid).items()}
     log(f"[{tag}] main path: 2 sessions, 3 batches, score_pairs, bundle "
-        f"round trip in {serve_s:.3f} s; launches {launches}")
+        f"round trip in {serve_s:.3f} s; launches {launches}; predicted "
+        f"from the code {want}")
     assert emb.shape == (NODES, HIDDEN) and np.isfinite(emb).all()
     assert np.abs(emb).sum() > 0
-    # two layers per embeddings() call, two sessions
-    assert launches[kname] == 4, launches
-    assert sum(launches.values()) == 4, launches
+    assert launches == want, (launches, want)
 
     # -------- embed-all time (warm, device-resident inputs)
     def embed_all():
         return infer.full_graph_embeddings(sess.params["sage"], cfg,
                                            sess.feats, sess.pad, fetch=False,
+                                           lstm_hybrid=lstm_hybrid,
                                            device=dev)
 
     embed_all()
     times = []
-    for _ in range(20):
+    for _ in range(5 if cfg.agg_func == "LSTM" else 20):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         embed_all()
@@ -442,25 +490,36 @@ def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
         f"error {err}")
 
     # -------- each kernel alone at its layer's shapes
+    summary = {"config": tag, "embed_all_ms": ms}
+    if lstm_hybrid:
+        return summary, []    # its kernels have rows at MEAN's and LSTM's
     idx, mask = infer._slot_table(sess.pad.neighbors, sess.pad.degrees,
                                   cfg.gcn)
     h0 = sess.feats.to(getattr(torch, dtype))
     rows = []
     with torch.no_grad():
-        if agg_func == "MEAN":
+        if cfg.agg_func == "MEAN":
             from graphsage_torch.models.layers import mean_pretransform
             z = mean_pretransform(sess.params["sage"]["layers"][0]["weight"],
                                   h0)
-            rows.append(kernel_row(kname, f"{dtype}, both layers",
-                                   z[:, HIDDEN:], idx, mask, launches[kname]))
-        else:
+            rows.append(kernel_row("gather_mean", f"{dtype}, both layers",
+                                   z[:, HIDDEN:], idx, mask,
+                                   launches["gather_mean"]))
+        elif cfg.agg_func == "MAX":
             h1 = infer._layer_full(cfg, sess.params["sage"], 0, h0, idx,
-                                   mask, NODES)
-            rows.append(kernel_row(kname, f"{dtype}, layer 1", h0, idx, mask,
-                                   launches[kname]))
-            rows.append(kernel_row(kname, f"{dtype}, layer 2", h1, idx, mask,
-                                   launches[kname]))
-    return {"config": tag, "embed_all_ms": ms}, rows
+                                   mask, NODES, "MAX")
+            for layer, h in ((1, h0), (2, h1)):
+                rows.append(kernel_row("gather_max", f"{dtype}, layer "
+                                       f"{layer}", h, idx, mask,
+                                       launches["gather_max"]))
+        else:
+            block = infer.card_block("LSTM", NODES, idx.shape[1], FEATS,
+                                     h0.element_size())
+            rows.append(gather_row(
+                f"serving LSTM layer-1 block, {block} x {idx.shape[1]} ids "
+                f"over [{NODES}, {FEATS}]", h0, idx[:block].reshape(-1),
+                launches["gather_rows"]))
+    return summary, rows
 
 
 # ------------------------------------------------------------ training
@@ -468,30 +527,64 @@ def serve_config(agg_func: str, dtype: str, feats: torch.Tensor,
 @contextlib.contextmanager
 def plain_training():
     """Training through the plain versions on the card (the reference
-    run): autograd differentiates them."""
-    with patched(graphsage, mean_aggregate=agg.mean_aggregate_plain), \
+    run): autograd differentiates them (max_aggregate_plain's amax splits
+    ties equally; the LSTM's slot gather is index_select)."""
+    with patched(graphsage, mean_aggregate=agg.mean_aggregate_plain,
+                 max_aggregate=agg.max_aggregate_plain), \
+            patched(lstm_agg, gather_rows=gather.gather_rows_plain), \
             patched(sddmm, pair_scores=sddmm.dense_pair_scores):
         yield
 
 
-def make_trainer(ds, method: str, dev: torch.device) -> Trainer:
-    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN)
+def make_trainer(ds, method: str, dev: torch.device, agg_func: str = "MEAN",
+                 gcn: bool = False) -> Trainer:
+    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
+                          agg_func=agg_func, gcn=gcn)
     tcfg = TrainConfig(learn_method=method, unsup_loss="normal", epochs=1,
                        b_sz=B_SZ, lr=LR, fanout=FANOUT, seed=SEED,
                        verbose=False)
     return Trainer(ds, cfg, tcfg, device=dev)
 
 
-def fit_timed(tr: Trainer, before=None,
-              after=None) -> tuple[list[float], float]:
+def compact_launches(cfg: GraphSageConfig, method: str, step_args: list,
+                     evals: int) -> dict:
+    """What the compact Trainer launches in a fit: per encode (each step,
+    and each evaluation embedding) one aggregate kernel a layer
+    (gather_mean, gather_max, or gather_rows for the LSTM's slot gather);
+    per step under an unsupervised loss one pair_scores where
+    sddmm.dense_block_pays picks the score block for the step's pair batch;
+    and for MAX one tie-gather gather_rows a differentiated layer a step
+    (every layer above the first: the first aggregates constant feature
+    rows)."""
+    steps = len(step_args)
+    want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
+            "gather_rows": 0}
+    kernel = {"MEAN": "gather_mean", "MAX": "gather_max",
+              "LSTM": "gather_rows"}[cfg.agg_func]
+    want[kernel] += cfg.num_layers * (steps + evals)
+    if cfg.agg_func == "MAX":
+        want["gather_rows"] += (cfg.num_layers - 1) * steps
+    if method != "sup":
+        for pb, cb, _, _ in step_args:
+            want["pair_scores"] += sddmm.dense_block_pays(
+                pb.target_rows.shape[0], cb.out_rows,
+                pb.pos_q.size + pb.neg_q.size, cfg.out_size)
+    return want
+
+
+def fit_timed(tr: Trainer, before=None, after=None,
+              step_args: list | None = None) -> tuple[list[float], float]:
     """Trainer.fit for one epoch, with each step synchronised and timed on
     the host clock; before(i) / after(i) run around step i, outside the
-    timed window.  Returns (step ms, fit seconds)."""
+    timed window, and each step's host batch is appended to ``step_args``
+    when given.  Returns (step ms, fit seconds)."""
     step_ms = []
     step = tr._step
 
     def timed_step(*args):
         i = len(step_ms)
+        if step_args is not None:
+            step_args.append(args)
         if before is not None:
             before(i)
         torch.cuda.synchronize()
@@ -525,55 +618,66 @@ def capture_step_inputs(tr: Trainer) -> dict:
     """The tensors each kernel of one training step is called with: one
     more batch built and stepped (after the counted run) with recorders in
     front of the kernels' wrappers."""
-    seen = {"gather_mean": [], "pair_scores": []}
+    seen = {"gather_mean": [], "gather_max": [], "pair_scores": [],
+            "gather_rows": []}
 
     def mean_rec(embed, idx, mask):
         seen["gather_mean"].append((embed.detach(), idx, mask))
         return agg.mean_aggregate(embed, idx, mask)
+
+    def max_rec(embed, idx, mask):
+        seen["gather_max"].append((embed.detach(), idx, mask))
+        return agg.max_aggregate(embed, idx, mask)
+
+    def rows_rec(table, idx):
+        seen["gather_rows"].append((table.detach(), idx))
+        return gather.gather_rows(table, idx)
 
     def scores_rec(emb, target_rows, eps=1e-8):
         seen["pair_scores"].append((emb.detach(), target_rows))
         return sddmm.PairScores.apply(emb, target_rows, eps)
 
     nodes = tr.ds.train_nodes[:B_SZ]
-    with patched(graphsage, mean_aggregate=mean_rec), \
+    with patched(graphsage, mean_aggregate=mean_rec, max_aggregate=max_rec), \
+            patched(lstm_agg, gather_rows=rows_rec), \
             patched(sddmm, pair_scores=scores_rec):
         tr._step(*tr._build_train_batch(nodes))
     torch.cuda.synchronize()
     return seen
 
 
-def train_method(method: str, ds, dev: torch.device) -> dict:
+def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
+                 gcn: bool = False, free_running: bool = True) -> dict:
     """One epoch of `method` through the kernels (counted), held step by
     step against the plain versions; returns what the kernel rows need.
 
     The plain run is in lockstep: before each of its steps it takes the
     kernel run's params from before that step, so each step's loss and
     update are compared from the same params and the same host batch.
-    A free-running plain epoch is printed beside it, not asserted: under
-    plus_unsup, SGD at lr 0.7 can carry a last-bit difference (index_add_'s
-    atomics, another order of the score sums) to an O(1) one within 50
-    steps."""
-    tr = make_trainer(ds, method, dev)
-    snaps = []
+    A free-running plain epoch (MEAN only) is printed beside it, not
+    asserted: under plus_unsup, SGD at lr 0.7 can carry a last-bit
+    difference (index_add_'s atomics, another order of the score sums) to
+    an O(1) one within 50 steps."""
+    tag = (f"[train {method}{'' if agg_func == 'MEAN' else ' ' + agg_func}"
+           f"{' gcn' if gcn else ''}]")
+    tr = make_trainer(ds, method, dev, agg_func, gcn)
+    snaps, step_args = [], []
     agg.reset_launches()
     step_ms, fit_s = fit_timed(tr, before=lambda i: snaps.append(
-        param_snapshot(tr)))
+        param_snapshot(tr)), step_args=step_args)
     launches = dict(agg.LAUNCHES)
     snaps.append(param_snapshot(tr))
     steps = len(step_ms)
     assert steps == TRAIN_NODES // B_SZ, steps
     val_f1 = tr.history[-1]["val_f1"]
     evals = 1 + ("test_f1" in tr.history[-1])
-    want = {"gather_mean": 2 * steps + 2 * evals, "gather_max": 0,
-            "pair_scores": steps if method == "plus_unsup" else 0,
-            "gather_rows": 0}
-    log(f"[train {method}] main path: Trainer.fit, {steps} steps + "
-        f"{evals} evaluation embeddings in {fit_s:.3f} s; launches "
-        f"{launches}")
+    want = compact_launches(tr.mcfg, method, step_args, evals)
+    log(f"{tag} main path: Trainer.fit, {steps} steps + {evals} evaluation "
+        f"embeddings in {fit_s:.3f} s; launches {launches}; predicted from "
+        f"the code {want}")
     assert launches == want, (launches, want)
 
-    ref = make_trainer(ds, method, dev)
+    ref = make_trainer(ds, method, dev, agg_func, gcn)
     step_errs = []
 
     def load(i):
@@ -591,8 +695,8 @@ def train_method(method: str, ds, dev: torch.device) -> dict:
     ref_losses = np.asarray(ref.step_losses)
     assert np.isfinite(losses).all() and losses.shape == (steps,)
     rel = np.abs(losses - ref_losses) / np.abs(ref_losses)
-    log(f"[train {method}] lockstep, kernels vs plain versions: step loss "
-        f"max relative difference {rel.max():.3e} (step "
+    log(f"{tag} lockstep, kernels vs plain versions: step loss max "
+        f"relative difference {rel.max():.3e} (step "
         f"{int(rel.argmax()) + 1}; tolerance {LOSS_RTOL}); params after "
         f"each step max abs difference {max(step_errs):.3e} (step "
         f"{int(np.argmax(step_errs)) + 1}; tolerance {PARAM_ATOL}); final "
@@ -601,31 +705,31 @@ def train_method(method: str, ds, dev: torch.device) -> dict:
     assert max(step_errs) <= PARAM_ATOL, step_errs
     del ref
 
-    free = make_trainer(ds, method, dev)
-    with plain_training():
-        fit_timed(free)
-    free_rel = (np.abs(losses - np.asarray(free.step_losses))
-                / np.abs(np.asarray(free.step_losses)))
-    first = np.flatnonzero(free_rel > LOSS_RTOL)
-    log(f"[train {method}] free-running plain epoch (not asserted): step "
-        f"loss max relative difference {free_rel.max():.3e} (first above "
-        f"{LOSS_RTOL}: step "
-        f"{int(first[0]) + 1 if first.size else 'none'}); final params max "
-        f"abs difference "
-        f"{max_abs_diff(tree_leaves(free.params), snaps[-1]):.3e}; val F1 "
-        f"{free.history[-1]['val_f1']:.6f}")
-    del free
+    if free_running:
+        free = make_trainer(ds, method, dev, agg_func, gcn)
+        with plain_training():
+            fit_timed(free)
+        free_rel = (np.abs(losses - np.asarray(free.step_losses))
+                    / np.abs(np.asarray(free.step_losses)))
+        first = np.flatnonzero(free_rel > LOSS_RTOL)
+        log(f"{tag} free-running plain epoch (not asserted): step loss "
+            f"max relative difference {free_rel.max():.3e} (first above "
+            f"{LOSS_RTOL}: step "
+            f"{int(first[0]) + 1 if first.size else 'none'}); final params "
+            f"max abs difference "
+            f"{max_abs_diff(tree_leaves(free.params), snaps[-1]):.3e}; val "
+            f"F1 {free.history[-1]['val_f1']:.6f}")
+        del free
 
     tail = step_ms[5:]
     ref_tail = plain_ms[5:]
-    log(f"[train {method}] ms_per_step {statistics.median(tail):.6f} "
-        f"(median of steps 6-{steps}; min {min(tail):.6f}, max "
-        f"{max(tail):.6f}); first step {step_ms[0]:.6f}; plain versions "
+    log(f"{tag} ms_per_step {statistics.median(tail):.6f} (median of steps "
+        f"6-{steps}; min {min(tail):.6f}, max {max(tail):.6f}); first step "
+        f"{step_ms[0]:.6f}; plain versions "
         f"{statistics.median(ref_tail):.6f}; epoch + evaluation "
         f"{fit_s:.3f} s (plain versions {plain_s:.3f} s)")
-    log(f"[train {method}] loss curve: "
-        + " ".join(f"{x:.6f}" for x in losses))
-    log(f"[train {method}] val F1 {val_f1:.6f}; history {tr.history}")
+    log(f"{tag} loss curve: " + " ".join(f"{x:.6f}" for x in losses))
+    log(f"{tag} val F1 {val_f1:.6f}; history {tr.history}")
 
     # device busy and idle share over a 5-step epoch (same trainer, the
     # train split cut to 100 nodes), wall time from an unprofiled epoch
@@ -636,7 +740,7 @@ def train_method(method: str, ds, dev: torch.device) -> dict:
     tr.train_epoch()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    log(f"[train {method}] 5-step epoch {wall:.6f} ms (warm, prefetch on)")
+    log(f"{tag} 5-step epoch {wall:.6f} ms (warm, prefetch on)")
     profile_device(tr.train_epoch, wall, what="5-step epoch ms", top=12)
     tr.ds = ds
     return {"trainer": tr, "launches": launches,
@@ -748,6 +852,79 @@ def mean_step_rows(step_inputs: dict, launches: int) -> list:
     return rows
 
 
+def max_backward_row(label: str, embed: torch.Tensor, idx: torch.Tensor,
+                     mask: torch.Tensor, launches: int) -> dict:
+    """gather_max's backward (agg.max_aggregate_backward: the tie gather
+    through the gather_rows kernel, the tie test, the division and
+    index_add_) against autograd through the plain version, and its row:
+    the composition's time beside its byte bound and the plain backward's
+    time (no one PyTorch call computes it: library_ms is null)."""
+    g = torch.randn(idx.shape[0], embed.shape[1],
+                    generator=torch.Generator().manual_seed(11)
+                    ).to(embed.device)
+    with torch.no_grad():
+        out = agg.max_aggregate(embed, idx, mask)
+    got = agg.max_aggregate_backward(g, embed, idx, mask, out)
+    leaf = embed.detach().clone().requires_grad_(True)
+    plain_out = agg.max_aggregate_plain(leaf, idx, mask)
+    want, = torch.autograd.grad(plain_out, leaf, g, retain_graph=True)
+    torch.cuda.synchronize()
+    err = check_close(f"gather_max backward {label}", got, want)
+
+    (u, s), (m, d) = idx.shape, embed.shape
+    es = embed.element_size()
+    rows_read = int(torch.unique(idx).numel())
+    nbytes = (2 * u * d * es + 2 * u * s * 4 + rows_read * d * es
+              + m * d * es)
+    row = {
+        "name": f"gather_max backward ({label})",
+        "route": "cuda",
+        "source": GATHER_SOURCE,
+        "replaces": REPLACES["gather_max"],
+        "launches": launches,
+        "max_abs_err": err,
+        **times(lambda: agg.max_aggregate_backward(g, embed, idx, mask, out),
+                None, reps=20),
+        "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+            plain_out, leaf, g, retain_graph=True), reps=20),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+        "library_device_ms": None,
+    }
+    log(f"kernel {row['name']}: embed {tuple(embed.shape)} {embed.dtype}, "
+        f"idx {tuple(idx.shape)}, {rows_read} rows read, {nbytes} bytes; "
+        f"the whole composition (gather_rows, tie test, index_add_ into "
+        f"[{m}, {d}]) {timing_note(row)} [plain: autograd through "
+        f"max_aggregate_plain's amax] max_abs_err {err}")
+    return row
+
+
+def max_step_rows(step_inputs: dict, launches: dict) -> list:
+    """gather_max at the compact MAX step's two layer shapes (forward,
+    exact) and its backward at both; only layer 2's runs in training (layer
+    1 aggregates constant feature rows), so layer 1's backward row counts 0
+    launches."""
+    rows = []
+    for layer, (embed, idx, mask) in enumerate(step_inputs["gather_max"],
+                                               start=1):
+        label = f"f32 compact layer {layer}"
+        rows.append(kernel_row("gather_max", label, embed, idx, mask,
+                               launches["gather_max"]))
+        rows.append(max_backward_row(
+            f"{label}, idx {list(idx.shape)} over {list(embed.shape)}",
+            embed, idx, mask, launches["gather_rows"] if layer > 1 else 0))
+    return rows
+
+
+def lstm_step_rows(step_inputs: dict, launches: dict) -> list:
+    """gather_rows at the compact LSTM step's layer-1 slot gather."""
+    (table, idx), _ = step_inputs["gather_rows"]
+    return [gather_row(f"compact LSTM layer-1 slots, {idx.shape[0]} ids "
+                       f"over {list(table.shape)}", table, idx,
+                       launches["gather_rows"])]
+
+
 # ------------------------------------------------------------ cached training
 
 # (label, learn_method, agg_func, gcn, b_sz, extend_batches, train nodes
@@ -756,6 +933,7 @@ CACHED_CONFIGS = (
     ("a", "sup", "MEAN", False, 32768, False, None, 3, 2),
     ("b", "sup", "MAX", True, 512, False, 5120, 1, 1),
     ("c", "plus_unsup", "MEAN", False, 20, True, 1000, 1, 1),
+    ("d", "sup", "LSTM", False, 32768, False, None, 2, 1),
 )
 TABLE_CAP = 32
 TIMED_STEPS = 20
@@ -872,10 +1050,14 @@ def cached_config(label: str, method: str, agg_func: str, gcn: bool,
     """One cached configuration: the counted fit, its predicted launches,
     the lockstep check against the plain versions, the refresh against
     its plain version, refresh_ms, ms_per_step, the device profile of one
-    epoch and val F1."""
+    epoch and val F1.  LSTM is the cached-LSTM hybrid: its layer-0 cell
+    must come out of the fit unchanged, and the trained model is exported
+    as a bundle for the hybrid's serving phase."""
     if keep is not None:
         ds = dataclasses.replace(ds, train_nodes=ds.train_nodes[:keep])
-    tag = (f"[cached {label}: {method} {agg_func}{' gcn' if gcn else ''} "
+    hybrid = agg_func == "LSTM"
+    tag = (f"[cached {label}: {method} {agg_func}"
+           f"{' hybrid' if hybrid else ''}{' gcn' if gcn else ''} "
            f"b_sz {b_sz}{' extended' if extend else ''}]")
     cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
                           agg_func=agg_func, gcn=gcn)
@@ -884,10 +1066,12 @@ def cached_config(label: str, method: str, agg_func: str, gcn: bool,
                        seed=SEED, verbose=False, refresh_every=every)
     t0 = time.perf_counter()
     tr = CachedTrainer(ds, cfg, tcfg, table_cap=TABLE_CAP,
-                       extend_batches=extend, device=dev)
+                       extend_batches=extend, lstm_hybrid=hybrid, device=dev)
     log(f"{tag} trainer: {len(ds.train_nodes)} train nodes, table "
         f"{tuple(tr.neighbors.shape)}, built in "
         f"{time.perf_counter() - t0:.3f} s")
+    cells = ([{k: v.detach().clone() for k, v in cell.items()}
+              for cell in tr.params["sage"]["agg"]] if hybrid else None)
 
     # -------- the main path, counted and recorded
     step, refresh, hop = tr._step, tr._refresh, RecordingHop(tr.hop)
@@ -926,6 +1110,19 @@ def cached_config(label: str, method: str, agg_func: str, gcn: bool,
     assert launches == want, (launches, want)
     losses = np.asarray([float(r["loss"]) for r in records])
     assert np.isfinite(losses).all()
+    bundle = None
+    if hybrid:
+        for k, v in tr.params["sage"]["agg"][0].items():
+            assert torch.equal(v.detach(), cells[0][k]), k
+        assert not torch.equal(tr.params["sage"]["agg"][1]["w_ih"].detach(),
+                               cells[1]["w_ih"])
+        bundle = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "chip_smoke_bundles",
+                              f"cached_{label}_hybrid")
+        infer.export_bundle(bundle, params_to_numpy(tr.params), cfg, CLASSES,
+                            meta={"lstm_hybrid": True})
+        log(f"{tag} the layer-0 cell is unchanged after the fit (the "
+            f"layer-2 cell trained); exported the hybrid to {bundle}")
 
     # -------- the refresh against its plain version, same samples
     first = refreshes[0]
@@ -1026,6 +1223,7 @@ def cached_config(label: str, method: str, agg_func: str, gcn: bool,
     log(f"{tag} val F1 {val_f1:.6f}; history {tr.history}")
     return {"label": label, "launches": launches, "refresh": first,
             "gathers": seen, "scores": scores_seen, "feats": tr.feats,
+            "bundle": bundle,
             "summary": {"refresh_ms": refresh_ms, "ms_per_step": ms_per_step,
                         "val_f1": val_f1, "steps": steps}}
 
@@ -1154,6 +1352,10 @@ def main() -> int:
 def run(dev: torch.device) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
+    start = time.perf_counter()
+
+    def phase_done(what: str) -> None:
+        log(f"-- {what} done at {time.perf_counter() - start:.1f} s")
 
     t0 = time.perf_counter()
     reused = all(build.library_path(name).exists() for name in build.SOURCES)
@@ -1174,6 +1376,7 @@ def run(dev: torch.device) -> int:
     log(f"card: {smi}")
 
     small_graph_check(dev)
+    phase_done("phases 1-2 (build, small graph)")
 
     t0 = time.perf_counter()
     ds = synthetic_power_law(NODES, EDGES, num_feats=FEATS,
@@ -1191,12 +1394,18 @@ def run(dev: torch.device) -> int:
 
     summaries, rows = [], []
     for agg_func, dtype in CONFIGS:
-        summary, kernel_rows = serve_config(agg_func, dtype, feats, pad,
-                                            n_valid, dev)
+        cfg = GraphSageConfig(num_layers=2, input_size=FEATS,
+                              out_size=HIDDEN, agg_func=agg_func,
+                              compute_dtype=dtype)
+        gen = torch.Generator().manual_seed(824)
+        params = {"sage": init_graphsage(gen, cfg),
+                  "clf": init_classifier(gen, HIDDEN, CLASSES)}
+        summary, kernel_rows = serve_config(f"{agg_func} {dtype}", cfg,
+                                            params, feats, pad, n_valid, dev)
         summaries.append(summary)
         rows.extend(kernel_rows)
-    del feats, pad
     log(json.dumps({"serving": summaries}))
+    phase_done("phase 3 (serving)")
 
     train_ds = dataclasses.replace(ds,
                                    train_nodes=ds.train_nodes[:TRAIN_NODES])
@@ -1208,13 +1417,24 @@ def run(dev: torch.device) -> int:
                                unsup["launches"]["gather_mean"]))
     rows.extend(score_rows(step_inputs, unsup["launches"]["pair_scores"],
                            dev))
+    # MAX (sup, gcn) and LSTM (plus_unsup) on the compact pipeline
+    for key, method, agg_func, gcn in (("sup MAX gcn", "sup", "MAX", True),
+                                       ("plus_unsup LSTM", "plus_unsup",
+                                        "LSTM", False)):
+        res = training[key] = train_method(method, train_ds, dev, agg_func,
+                                           gcn, free_running=False)
+        step_inputs = capture_step_inputs(res["trainer"])
+        step_rows = max_step_rows if agg_func == "MAX" else lstm_step_rows
+        rows.extend(step_rows(step_inputs, res["launches"]))
     log(json.dumps({"training": {
         method: {"ms_per_step": v["ms_per_step"]}
         for method, v in training.items()}}))
-    del training, unsup, step_inputs
+    del training, unsup, step_inputs, res
+    phase_done("phases 4-5 (compact training, kernel rows)")
 
     cli_round_trip(dev)
     cli_cached(dev)
+    phase_done("phase 6 (CLI)")
 
     results = {}
     for config in CACHED_CONFIGS:
@@ -1223,8 +1443,18 @@ def run(dev: torch.device) -> int:
     log(json.dumps({"cached": {label: res["summary"]
                                for label, res in results.items()}}))
     total = sum(res["launches"]["gather_rows"] for res in results.values())
-    del results
+    phase_done("phase 7 (cached training)")
+
+    # phase 3 for the cached-LSTM hybrid that (d) trained and exported
+    params, cfg, _, meta = infer.load_bundle(results["d"]["bundle"])
+    assert meta["lstm_hybrid"] is True
+    summary, _ = serve_config("LSTM hybrid float32", cfg, params, feats, pad,
+                              n_valid, dev, lstm_hybrid=True)
+    log(json.dumps({"serving": [summary]}))
+    del results, feats, pad
+    phase_done("phase 3 for the hybrid")
     rows.extend(microbench_rows(dev, total))
+    phase_done("phase 8 (microbench)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -12,13 +12,22 @@ DIR`` writes the best-val model as a serving bundle that
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
         --pipeline cached --table_cap 8 --learn_method plus_unsup --epochs 2
 
-``--pipeline cached`` (``train.CachedTrainer``) takes ``--table_cap``,
-``--refresh_every``, ``--no_extend`` and ``--lstm_hybrid``, and trains MEAN
-and MAX.  Not ported yet, and refused with the ROADMAP item that queues
-them: ``--pipeline cached_dist|dist`` (item 16), MAX on the compact
-pipeline (item 12), LSTM and the cached-LSTM hybrid (item 13), bfloat16
-training (item 14), and HOCON ``--config`` files, checkpoints on disk and
-``--resume`` (item 8).
+``--agg_func MEAN|MAX|LSTM`` trains on ``--pipeline compact`` (the all-LSTM
+model shuffles each row's slots).  ``--pipeline cached``
+(``train.CachedTrainer``) takes ``--table_cap``, ``--refresh_every``,
+``--no_extend`` and ``--lstm_hybrid``, and trains MEAN, MAX and, with
+``--agg_func LSTM --lstm_hybrid``, the cached-LSTM hybrid, whose ``--export``
+bundle records ``meta["lstm_hybrid"]`` so that serving runs the hybrid
+forward.  Not ported yet, and refused with the ROADMAP item that queues
+them: ``--pipeline cached_dist|dist`` (item 16), bfloat16 training (item
+14), and HOCON ``--config`` files, checkpoints on disk and ``--resume``
+(item 8).
+
+    python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
+        --agg_func LSTM --epochs 1
+    python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
+        --pipeline cached --agg_func LSTM --lstm_hybrid --epochs 2 \
+        --export bundles/hybrid
 """
 
 from __future__ import annotations
@@ -58,13 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["compact", "cached", "cached_dist", "dist"],
                    help="compact = the per-step reference-parity path; "
                         "cached = the leaf-cached path (LSTM needs "
-                        "--lstm_hybrid, not ported yet)")
+                        "--lstm_hybrid)")
     p.add_argument("--table_cap", type=int, default=None,
                    help="cached pipeline: cap the padded adjacency width "
                         "(a uniform subset per row); None = full degree")
     p.add_argument("--lstm_hybrid", action="store_true",
                    help="cached pipeline + --agg_func LSTM: the hybrid "
-                        "variant (not ported yet, ROADMAP A item 13)")
+                        "variant (MEAN leaf cache, live LSTM cells above)")
     p.add_argument("--refresh_every", type=int, default=1,
                    help="cached pipeline: refresh the leaf cache every k "
                         "epochs")
@@ -177,6 +186,11 @@ def run(argv=None):
                 "best_val_f1": float(trainer.max_vali_f1),
                 "epoch": best["epoch"], "test_f1": best["test_f1"],
                 "params": "best-val"}
+        if (args.lstm_hybrid and args.agg_func == "LSTM"
+                and args.pipeline == "cached"):
+            # the trained topology is MEAN at layer 1 and LSTM above;
+            # InferenceSession.from_bundle reads this and serves it
+            meta["lstm_hybrid"] = True
         export_params = best["params"]
         if export_params is None:  # no improvement was ever recorded
             export_params = params_to_numpy(trainer.params)

@@ -4,13 +4,20 @@ Port of ``graphsage_tpu/infer.py``.  Every node is propagated one layer at a
 time over the full padded adjacency (all true neighbours, no sampling), so
 two calls give bit-identical embeddings.  MEAN layers use the pretransform
 (transform the [N, D] table once by the layer weight, then average H-wide
-rows); MAX layers aggregate the raw table, then transform.
+rows); MAX and LSTM layers aggregate the raw table, then transform.  A
+cached-LSTM-hybrid model (``lstm_hybrid=True``) aggregates layer 1 with
+MEAN and the layers above with their LSTM cells, the topology it was
+trained with.
 
-On the card each layer's aggregation is ONE launch of the hand-written
-kernel (``graphsage_torch/csrc/aggregate.cu``) over all rows: the kernel
-never builds the [block, S, D] gather that the JAX package bounds with
-``lax.map`` blocking.  On the CPU the plain versions run block by block
-under the same byte budget.
+On the card a MEAN or MAX layer's aggregation is ONE launch of the
+hand-written kernel (``graphsage_torch/csrc/aggregate.cu``) over all rows:
+the kernel never builds the [block, S, D] gather that the JAX package
+bounds with ``lax.map`` blocking.  An LSTM layer does build its [block, S,
+D] slot sequence (one ``gather_rows`` launch a block, then the cell over
+the block's rows), so it runs in row blocks under the byte budget of
+``_pick_block`` at the layer's input width (:func:`card_block`).  On the
+CPU the plain versions run block by block under the same budget, with the
+JAX package's one block size for every layer.
 
 Entry points run on the card unless the caller passes ``device="cpu"``; with
 no card and no device given they raise.
@@ -42,10 +49,11 @@ from graphsage_torch.models.graphsage import GraphSageConfig, compute_dtype
 from graphsage_torch.models.layers import (classifier_apply,
                                            mean_pretransform,
                                            sage_layer_apply)
+from graphsage_torch.models.lstm_agg import lstm_aggregate
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 
-# Working-set budget for one block's [block, S, gather_dim] gather in the
-# plain versions on the CPU.
+# Working-set budget for one block's [block, S, gather_dim] gather: the
+# plain versions' on the CPU, and the LSTM layers' on the card.
 _GATHER_BYTES_BUDGET = 256 << 20
 
 
@@ -57,13 +65,6 @@ def _resolve_device(device: str | torch.device | None) -> torch.device:
                 "device='cpu' to run the plain versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
-
-
-def _check_supported(cfg: GraphSageConfig, lstm_hybrid: bool) -> None:
-    if cfg.agg_func == "LSTM" or lstm_hybrid:
-        raise NotImplementedError(
-            "LSTM and cached-LSTM-hybrid serving are not ported yet "
-            "(ROADMAP, LSTM aggregator)")
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
@@ -86,24 +87,35 @@ def _pick_block(n: int, width: int, gather_dim: int, itemsize: int,
     return int(np.clip(block, 1, max(1, n)))
 
 
+def card_block(agg_func: str, n: int, slots: int, width: int,
+               itemsize: int, requested: int | None = None) -> int:
+    """Rows a block of one layer on the card: all ``n`` for MEAN and MAX
+    (one kernel launch), and for LSTM the ``_pick_block`` budget over the
+    layer's [block, slots, width] slot sequence (or ``requested``)."""
+    if agg_func != "LSTM":
+        return max(n, 1)
+    return _pick_block(n, slots, width, itemsize, requested)
+
+
 def _cat_rows(parts: list[torch.Tensor]) -> torch.Tensor:
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
                 h: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-                block: int) -> torch.Tensor:
-    """One full-table layer: h [N, Din] -> [N, H].
+                block: int, agg_func: str) -> torch.Tensor:
+    """One full-table layer aggregated with ``agg_func``: h [N, Din] ->
+    [N, H].
 
     idx/mask: [N, S] aggregation slots (self slot prepended by the caller in
     gcn mode).  The aggregation runs over row blocks of ``block`` rows; on
-    the card the caller passes ``block = N``, one kernel launch."""
+    the card the caller passes :func:`card_block`'s."""
     w = params["layers"][layer]["weight"]
     hdim = w.shape[0]
     n = h.shape[0]
     rows = [slice(r0, min(r0 + block, n)) for r0 in range(0, n, block)]
 
-    if cfg.agg_func == "MEAN":
+    if agg_func == "MEAN":
         if cfg.gcn:
             z = mean_pretransform(w, h, gcn=True)               # [N, H]
             out = [torch.relu(mean_aggregate(z, idx[r], mask[r]))
@@ -116,16 +128,20 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
                    for r in rows]
         return _cat_rows(out)
 
-    if cfg.agg_func == "MAX":
+    if agg_func in ("MAX", "LSTM"):
         out = []
         for r in rows:
-            agg = max_aggregate(h, idx[r], mask[r])
+            if agg_func == "MAX":
+                agg = max_aggregate(h, idx[r], mask[r])
+            else:
+                agg = lstm_aggregate(params["agg"][layer], h, idx[r],
+                                     mask[r])
             self_rows = agg if cfg.gcn else h[r]
             out.append(sage_layer_apply(params["layers"][layer], self_rows,
                                         agg, gcn=cfg.gcn))
         return _cat_rows(out)
 
-    raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
+    raise ValueError(f"unknown agg_func {agg_func!r}")
 
 
 def _slot_table(neighbors: torch.Tensor, degrees: torch.Tensor,
@@ -153,12 +169,22 @@ def _slot_table(neighbors: torch.Tensor, degrees: torch.Tensor,
 
 def _full_embed(params: dict, cfg: GraphSageConfig, feats: torch.Tensor,
                 neighbors: torch.Tensor, degrees: torch.Tensor,
-                block: int) -> torch.Tensor:
-    """All-layer full-neighbourhood propagation: [N, D] -> [N, out_size]."""
+                block: int | None, lstm_hybrid: bool) -> torch.Tensor:
+    """All-layer full-neighbourhood propagation: [N, D] -> [N, out_size].
+    On the CPU ``block`` rows a block for every layer; on the card each
+    layer takes :func:`card_block`'s, with ``block`` as the request.  With
+    ``lstm_hybrid`` layer 1 aggregates with MEAN: a hybrid model's layer-0
+    cell is never trained and must not be used."""
     idx, mask = _slot_table(neighbors, degrees, cfg.gcn)
     h = feats.to(compute_dtype(cfg))
+    n = h.shape[0]
     for layer in range(cfg.num_layers):
-        h = _layer_full(cfg, params, layer, h, idx, mask, block)
+        agg_func = "MEAN" if lstm_hybrid and layer == 0 else cfg.agg_func
+        rows = block
+        if h.is_cuda:
+            rows = card_block(agg_func, n, idx.shape[1], h.shape[1],
+                              h.element_size(), block)
+        h = _layer_full(cfg, params, layer, h, idx, mask, rows, agg_func)
     return h
 
 
@@ -170,33 +196,33 @@ def full_graph_embeddings(params: dict, cfg: GraphSageConfig,
                           device: str | torch.device | None = None):
     """Exact deterministic embeddings for every node: [N, out_size] f32.
 
-    ``params`` is the encoder pytree ({"layers": [{"weight"}]}) of tensors
-    or numpy arrays.  ``pad`` should be the full (uncapped) adjacency for
-    exact semantics; a width-capped table computes the same propagation
-    over the capped neighbour sets.  ``feats`` and ``pad``'s tables may be
-    numpy arrays or tensors; pass tensors already on ``device`` to avoid an
-    upload per call (``InferenceSession`` does).  ``block`` bounds the plain
-    versions' gather on the CPU; on the card each layer is one launch over
-    all rows and ``block`` is not used.  ``fetch=False`` returns the
-    on-device [N, out_size] tensor in the compute dtype instead of a host
-    float32 array.  ``lstm_hybrid=True`` (a cached-LSTM-hybrid model) and
-    LSTM configs raise ``NotImplementedError`` until LSTM is ported.
+    ``params`` is the encoder pytree ({"layers": [{"weight"}]}, with LSTM
+    also {"agg": [cell, ...]}) of tensors or numpy arrays.  ``pad`` should
+    be the full (uncapped) adjacency for exact semantics; a width-capped
+    table computes the same propagation over the capped neighbour sets.
+    ``feats`` and ``pad``'s tables may be numpy arrays or tensors; pass
+    tensors already on ``device`` to avoid an upload per call
+    (``InferenceSession`` does).  ``block`` bounds the plain versions'
+    gather on the CPU; on the card MEAN and MAX layers are one launch over
+    all rows, and ``block`` (by default the byte budget) sets the rows of an
+    LSTM layer's blocks.  ``fetch=False`` returns the on-device [N,
+    out_size] tensor in the compute dtype instead of a host float32 array.
+    ``lstm_hybrid=True`` serves a cached-LSTM-hybrid model
+    (``CachedTrainer(lstm_hybrid=True)``): MEAN at layer 1, the live LSTM
+    cells above.
     """
-    _check_supported(cfg, lstm_hybrid)
     dev = _resolve_device(device)
     params = params_from_jax(params, dev)
     feats = _as_tensor(feats, dev)
     n = pad.num_nodes
-    if dev.type == "cuda":
-        block = max(n, 1)
-    else:
+    if dev.type != "cuda":
         gather_dim = (cfg.out_size if cfg.agg_func == "MEAN"
                       else max(int(feats.shape[1]), cfg.out_size))
         block = _pick_block(n, pad.width, gather_dim,
                             compute_dtype(cfg).itemsize, block)
     with torch.no_grad():
         out = _full_embed(params, cfg, feats, _as_tensor(pad.neighbors, dev),
-                          _as_tensor(pad.degrees, dev), block)
+                          _as_tensor(pad.degrees, dev), block, lstm_hybrid)
     if not fetch:
         return out
     return out.float().cpu().numpy()
@@ -212,8 +238,14 @@ def _expected_shapes(mcfg: GraphSageConfig, num_classes: int) -> dict:
     shapes = {"clf/weight": (num_classes, mcfg.out_size),
               "clf/bias": (num_classes,)}
     for i in range(mcfg.num_layers):
-        fan_in = mcfg.layer_input_size(i) * (1 if mcfg.gcn else 2)
-        shapes[f"sage/layers/{i}/weight"] = (mcfg.out_size, fan_in)
+        d = mcfg.layer_input_size(i)
+        shapes[f"sage/layers/{i}/weight"] = (mcfg.out_size,
+                                             d * (1 if mcfg.gcn else 2))
+        if mcfg.agg_func == "LSTM":
+            shapes.update({f"sage/agg/{i}/w_ih": (4 * d, d),
+                           f"sage/agg/{i}/w_hh": (4 * d, d),
+                           f"sage/agg/{i}/b_ih": (4 * d,),
+                           f"sage/agg/{i}/b_hh": (4 * d,)})
     return shapes
 
 
@@ -275,7 +307,6 @@ class InferenceSession:
                  block: int | None = None,
                  lstm_hybrid: bool = False,
                  device: str | torch.device | None = None) -> None:
-        _check_supported(mcfg, lstm_hybrid)
         self.device = _resolve_device(device)
         self.params = params_from_jax(params, self.device)
         self.mcfg = mcfg

@@ -18,11 +18,13 @@ layer, bottom-up:
 
 Rows past the real union size are padding: idx/self_idx 0, mask 0.
 
-The encoder trains MEAN GraphSAGE in float32.  Every aggregation is
-``ops.aggregate.mean_aggregate`` (the ``gather_mean`` kernel on the card,
-with its scatter-add backward), whatever ``impl`` says; ``impl`` still
-decides the layer structure, as in the JAX package.  MAX and LSTM training
-raise (ROADMAP A items 12 and 13).
+The encoder trains MEAN, MAX and LSTM GraphSAGE in float32.  A MEAN layer
+aggregates with ``ops.aggregate.mean_aggregate`` (the ``gather_mean`` kernel
+on the card, with its scatter-add backward), a MAX layer with
+``max_aggregate`` (``gather_max``, with the tie-splitting backward), an LSTM
+layer with ``models.lstm_agg.lstm_aggregate`` (the ``gather_rows`` kernel,
+then the cell), whatever ``impl`` says; ``impl`` still decides the layer
+structure, as in the JAX package.  The pretransform applies to MEAN only.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ import torch
 from graphsage_torch.models.layers import (init_sage_layer,
                                            mean_pretransform,
                                            sage_layer_apply)
-from graphsage_torch.ops.aggregate import mean_aggregate
+from graphsage_torch.models.lstm_agg import init_lstm_agg, lstm_aggregate
+from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,33 +83,40 @@ def compute_dtype(cfg: GraphSageConfig) -> torch.dtype:
 def init_graphsage(generator: torch.Generator, cfg: GraphSageConfig,
                    dtype: torch.dtype = torch.float32) -> dict:
     """{"layers": [{"weight": [out_size, in_total]}, ...]} with xavier
-    weights drawn from ``generator``."""
-    if cfg.agg_func == "LSTM":
-        raise NotImplementedError(
-            "LSTM aggregation is not ported yet (ROADMAP, LSTM aggregator)")
-    return {"layers": [
-        init_sage_layer(generator, cfg.layer_input_size(i), cfg.out_size,
-                        gcn=cfg.gcn, dtype=dtype)
-        for i in range(cfg.num_layers)]}
+    weights, and for LSTM {"agg": [cell, ...]}, one ``init_lstm_agg`` cell a
+    layer with hidden size equal to the layer's input size, all drawn from
+    ``generator`` layer by layer: the layer's weight, then its cell (the
+    JAX package's key order, ``graphsage_tpu/models/graphsage.py:78-92``)."""
+    params: dict = {"layers": [], "agg": []}
+    for i in range(cfg.num_layers):
+        in_size = cfg.layer_input_size(i)
+        params["layers"].append(init_sage_layer(
+            generator, in_size, cfg.out_size, gcn=cfg.gcn, dtype=dtype))
+        if cfg.agg_func == "LSTM":
+            params["agg"].append(init_lstm_agg(generator, in_size, dtype))
+    if not params["agg"]:
+        del params["agg"]
+    return params
 
 
 def _check_trainable(cfg: GraphSageConfig) -> None:
-    if cfg.agg_func == "MAX":
-        raise NotImplementedError(
-            "MAX training is not ported yet (ROADMAP A item 12: the "
-            "gather_max backward); MAX serving is (graphsage_torch.infer)")
-    if cfg.agg_func == "LSTM":
-        raise NotImplementedError(
-            "LSTM aggregation is not ported yet (ROADMAP A item 13)")
-    if cfg.agg_func != "MEAN":
+    if cfg.agg_func not in ("MEAN", "MAX", "LSTM"):
         raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
 
 
-def _aggregate(cfg: GraphSageConfig, h: torch.Tensor,
-               frontier: Frontier) -> torch.Tensor:
-    """The layer's aggregation: MEAN, the only trainable one so far (the
-    public entry points refuse the others)."""
-    return mean_aggregate(h, frontier.idx, frontier.mask)
+def _aggregate(cfg: GraphSageConfig, params: dict, layer: int,
+               h: torch.Tensor, frontier: Frontier) -> torch.Tensor:
+    """The layer's aggregation by ``agg_func``
+    (``graphsage_tpu/models/graphsage.py:95-112``); LSTM takes the layer's
+    cell, ``params["agg"][layer]``."""
+    if cfg.agg_func == "MEAN":
+        return mean_aggregate(h, frontier.idx, frontier.mask)
+    if cfg.agg_func == "MAX":
+        return max_aggregate(h, frontier.idx, frontier.mask)
+    if cfg.agg_func == "LSTM":
+        return lstm_aggregate(params["agg"][layer], h, frontier.idx,
+                              frontier.mask)
+    raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
 
 
 def graphsage_apply(params: dict, cfg: GraphSageConfig, x0: torch.Tensor,
@@ -120,15 +130,16 @@ def graphsage_apply(params: dict, cfg: GraphSageConfig, x0: torch.Tensor,
     assert len(frontiers) == cfg.num_layers
     h = x0
     for layer, frontier in enumerate(frontiers):
-        h = _layer(cfg, params["layers"][layer], h, frontier)
+        h = _layer(cfg, params, layer, h, frontier)
     return h
 
 
-def _layer(cfg: GraphSageConfig, layer_params: dict, h: torch.Tensor,
+def _layer(cfg: GraphSageConfig, params: dict, layer: int, h: torch.Tensor,
            frontier: Frontier) -> torch.Tensor:
+    layer_params = params["layers"][layer]
     if _use_pretransform(cfg, h, frontier):
         return _mean_pretransform_layer(cfg, layer_params, h, frontier)
-    agg = _aggregate(cfg, h, frontier)
+    agg = _aggregate(cfg, params, layer, h, frontier)
     self_feats = h[frontier.self_idx.long()]
     return sage_layer_apply(layer_params, self_feats, agg, gcn=cfg.gcn)
 
@@ -171,7 +182,7 @@ def graphsage_apply_gathered(params: dict, cfg: GraphSageConfig,
         h = torch.relu(agg + h_cat[:, :hdim][self_t])
 
     for layer in range(1, cfg.num_layers):
-        h = _layer(cfg, params["layers"][layer], h, frontiers[layer])
+        h = _layer(cfg, params, layer, h, frontiers[layer])
     return h
 
 

@@ -28,6 +28,7 @@ import math
 import torch
 from torch import nn
 
+from graphsage_torch.models.lstm_agg import LSTMAggregator
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 
 
@@ -131,28 +132,45 @@ class GraphSage(nn.Module):
     ([N, S] ``idx`` into ``h``'s rows, ``mask`` their weights; in gcn mode
     the table includes the node's own slot), aggregating first and then
     transforming, as the JAX package's ``graphsage_apply`` does with every
-    frontier equal to that table.  ``params()`` gives the JAX-layout dict
-    ``{"layers": [{"weight"}]}`` of the live parameters."""
+    frontier equal to that table.  With LSTM each layer owns an
+    ``LSTMAggregator`` whose hidden size is that layer's input size; the
+    parameters are drawn layer by layer, the sage weight first, as
+    ``init_graphsage`` draws them.  ``params()`` gives the JAX-layout dict
+    ``{"layers": [{"weight"}]}`` (and ``"agg"``, the cells, with LSTM) of
+    the live parameters."""
 
     def __init__(self, cfg, *, generator: torch.Generator,
                  dtype: torch.dtype = torch.float32) -> None:
         super().__init__()
-        if cfg.agg_func not in ("MEAN", "MAX"):
-            raise NotImplementedError(
-                f"agg_func {cfg.agg_func!r}: the port has MEAN and MAX; "
-                f"LSTM is queued (ROADMAP, LSTM aggregator)")
+        if cfg.agg_func not in ("MEAN", "MAX", "LSTM"):
+            raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
         self.agg_func = cfg.agg_func
-        self.layers = nn.ModuleList(
-            SageLayer(cfg.layer_input_size(i), cfg.out_size, cfg.gcn,
-                      generator=generator, dtype=dtype)
-            for i in range(cfg.num_layers))
+        layers, cells = [], []
+        for i in range(cfg.num_layers):
+            layers.append(SageLayer(cfg.layer_input_size(i), cfg.out_size,
+                                    cfg.gcn, generator=generator,
+                                    dtype=dtype))
+            if cfg.agg_func == "LSTM":
+                cells.append(LSTMAggregator(cfg.layer_input_size(i),
+                                            generator=generator,
+                                            dtype=dtype))
+        self.layers = nn.ModuleList(layers)
+        self.agg = nn.ModuleList(cells)
 
     def params(self) -> dict:
-        return {"layers": [{"weight": layer.weight} for layer in self.layers]}
+        out = {"layers": [{"weight": layer.weight} for layer in self.layers]}
+        if self.agg_func == "LSTM":
+            out["agg"] = [cell.params() for cell in self.agg]
+        return out
 
     def forward(self, h: torch.Tensor, idx: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        aggregate = mean_aggregate if self.agg_func == "MEAN" else max_aggregate
-        for layer in self.layers:
-            h = layer(h, aggregate(h, idx, mask))
+        for i, layer in enumerate(self.layers):
+            if self.agg_func == "LSTM":
+                agg = self.agg[i](h, idx, mask)
+            elif self.agg_func == "MAX":
+                agg = max_aggregate(h, idx, mask)
+            else:
+                agg = mean_aggregate(h, idx, mask)
+            h = layer(h, agg)
         return h

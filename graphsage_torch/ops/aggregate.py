@@ -18,13 +18,17 @@ mask weights are taken in float32.  MEAN divides by ``max(sum(mask), 1)``, so
 a row with no valid slot gives 0.  MAX takes the elementwise max over the
 slots with ``mask > 0`` and gives 0 for a row with no such slot.
 
-MEAN has a gradient: ``mean_aggregate`` is a ``torch.autograd.Function``
-on both devices, whose backward is the scatter-add of the JAX package's
-``_pallas_mean_bwd`` (``graphsage_tpu/ops/pallas_aggregate.py:147-157``, an
-XLA scatter there, ``index_add_`` here).  The CPU takes the same Function
-with the plain forward, so the CPU tests exercise the backward the card
-runs.  MAX is forward only on the card: a ``max_aggregate`` call on CUDA
-that autograd would have to differentiate raises (ROADMAP A item 12).
+Both have a gradient on both devices: ``mean_aggregate`` and
+``max_aggregate`` are ``torch.autograd.Function``s whose forward is the
+plain version on a CPU tensor and the kernel on a CUDA tensor, and whose
+backward is the JAX package's custom VJP (``_pallas_mean_bwd`` and
+``_pallas_max_bwd``, ``graphsage_tpu/ops/pallas_aggregate.py:147-184``, XLA
+scatters there, ``index_add_`` here).  MAX routes each output element's
+gradient to the slots that hold the maximum and splits it equally among
+tied slots, as ``jax.grad`` of ``jnp.max`` does; its tie test gathers the
+slot rows again, through the ``gather_rows`` kernel on the card.  The CPU
+takes the same Functions with the plain forwards, so the CPU tests
+exercise the backwards the card runs.
 
 ``pair_cosine`` is the per-pair cosine score of the unsupervised losses
 (``graphsage_tpu/ops/aggregate.py:74-87``), plain PyTorch.
@@ -81,18 +85,19 @@ def mean_aggregate_plain(embed: torch.Tensor, idx: torch.Tensor,
 
 def max_aggregate_plain(embed: torch.Tensor, idx: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
-    """Masked max (reference MAX aggregator, src/models.py:316-326)."""
+    """Masked max (reference MAX aggregator, src/models.py:316-326), as
+    ``graphsage_tpu/ops/aggregate.py:63-71`` computes it: ``amax`` over the
+    [U, S, D] gather with masked slots at -inf, in the embed dtype (a max
+    is exact in any dtype).  Autograd through it splits the gradient
+    equally among tied maxima, as ``jax.grad`` of ``jnp.max`` does, so it
+    is also the plain reference of the backward."""
     valid = mask > 0
-    idx = idx.long()
-    neg_inf = torch.tensor(float("-inf"), device=embed.device)
-    acc = torch.full((idx.shape[0], embed.shape[1]), float("-inf"),
-                     dtype=torch.float32, device=embed.device)
-    for s in range(idx.shape[1]):
-        rows = embed[idx[:, s]].float()
-        acc = torch.maximum(acc, torch.where(valid[:, s, None], rows,
-                                             neg_inf))
+    gathered = embed[idx.long()]                                 # [U, S, D]
+    neg_inf = torch.tensor(float("-inf"), dtype=embed.dtype,
+                           device=embed.device)
+    out = torch.amax(torch.where(valid[..., None], gathered, neg_inf), dim=1)
     any_valid = valid.any(dim=1, keepdim=True)
-    return torch.where(any_valid, acc, torch.zeros_like(acc)).to(embed.dtype)
+    return torch.where(any_valid, out, torch.zeros_like(out))
 
 
 def _check_kernel_args(embed: torch.Tensor, idx: torch.Tensor,
@@ -221,19 +226,60 @@ def mean_aggregate(embed: torch.Tensor, idx: torch.Tensor,
     return _GatherMean.apply(embed, idx, mask)
 
 
+class _GatherMax(torch.autograd.Function):
+    """Masked max with the tie-splitting backward of ``_pallas_max_bwd``.
+    Gradients flow to ``embed`` only.  Saves ``embed`` (no copy), ``idx``,
+    ``mask`` and the output, from which the backward finds the tied
+    slots."""
+
+    @staticmethod
+    def forward(ctx, embed, idx, mask):
+        if not embed.is_cuda:
+            out = max_aggregate_plain(embed, idx, mask)
+        else:
+            out = _launch("gather_max", "gs_gather_max", embed, idx, mask)
+        ctx.save_for_backward(embed, idx, mask, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        embed, idx, mask, out = ctx.saved_tensors
+        return max_aggregate_backward(g, embed, idx, mask, out), None, None
+
+
+def max_aggregate_backward(g: torch.Tensor, embed: torch.Tensor,
+                           idx: torch.Tensor, mask: torch.Tensor,
+                           out: torch.Tensor) -> torch.Tensor:
+    """d(embed) of the masked max (``_pallas_max_bwd``): gather the slot
+    rows (the ``gather_rows`` kernel on the card, ``index_select`` on the
+    CPU), mark the valid slots equal to the output in the embed dtype (the
+    forward returns exact slot values, so the test is exact in bfloat16
+    too), divide ``g`` by the number of tied slots, and add each slot's
+    share into a zero [M, D] in the embed dtype with ``index_add_`` (on the
+    card with atomics, so the last bit varies by run)."""
+    # imported here: ops.gather imports this module
+    from graphsage_torch.ops.gather import (gather_rows_kernel,
+                                            gather_rows_plain)
+
+    u, s = idx.shape
+    d = embed.shape[1]
+    flat = idx.reshape(-1)
+    gather = gather_rows_kernel if embed.is_cuda else gather_rows_plain
+    gathered = gather(embed, flat).view(u, s, d)
+    is_max = ((gathered == out[:, None, :])
+              & (mask[..., None] > 0)).to(g.dtype)
+    denom = is_max.sum(dim=1, keepdim=True).clamp_min(1.0)
+    contrib = (g[:, None, :] * is_max / denom).to(embed.dtype)   # [U, S, D]
+    d_embed = torch.zeros(embed.shape, dtype=embed.dtype, device=g.device)
+    return d_embed.index_add_(0, flat.long(), contrib.reshape(-1, d))
+
+
 def max_aggregate(embed: torch.Tensor, idx: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
-    """Masked max.  CPU tensors take :func:`max_aggregate_plain`; CUDA
-    tensors launch the ``gather_max`` kernel, which has no backward yet
-    (ROADMAP A item 12): a call autograd would differentiate raises."""
-    if not embed.is_cuda:
-        return max_aggregate_plain(embed, idx, mask)
-    if torch.is_grad_enabled() and (embed.requires_grad
-                                    or mask.requires_grad):
-        raise NotImplementedError(
-            "gather_max: the CUDA kernel has no backward yet (ROADMAP A "
-            "item 12, MAX training); call it under torch.no_grad()")
-    return _launch("gather_max", "gs_gather_max", embed, idx, mask)
+    """Masked max, differentiable in ``embed``.  CPU tensors take
+    :func:`max_aggregate_plain`; CUDA tensors launch the ``gather_max``
+    kernel.  The backward is :func:`max_aggregate_backward` on both."""
+    return _GatherMax.apply(embed, idx, mask)
 
 
 def pair_cosine(embed: torch.Tensor, p_idx: torch.Tensor,

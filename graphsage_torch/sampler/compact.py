@@ -19,8 +19,10 @@ Two builders, chosen by ``native``:
 - the numpy builder, only when the caller asks for it (``native="never"``)
   or replays recorded sample sets (``sample_sets``).
 
-The LSTM aggregator's slot shuffle (``shuffle_slots``) comes with LSTM
-training (ROADMAP A item 13).
+``shuffle_slots`` permutes each row's slots after either builder
+(``shuffle_frontier_slots``), drawing from the same ``rng`` after the
+sampling, so the LSTM aggregator's slot order is bit-identical to the JAX
+package's too.
 """
 
 from __future__ import annotations
@@ -105,16 +107,36 @@ def sample_neighbor_sets(graph: CSRGraph, nodes: Sequence[int],
     return out
 
 
+def shuffle_frontier_slots(frontiers, rng: np.random.RandomState) -> tuple:
+    """Permute each row's slots (idx and mask together), one
+    ``rng.rand(U, S)`` a frontier, bottom-up, ordered by ``argsort``
+    (``graphsage_tpu/sampler/compact.py:109-122``): the random neighbour
+    order the GraphSAGE paper gives the LSTM aggregator.  Order-invariant
+    aggregators are unaffected, and masked slots are skipped wherever they
+    land."""
+    out = []
+    for f in frontiers:
+        order = np.argsort(rng.rand(*f.idx.shape), axis=1)
+        out.append(Frontier(idx=np.take_along_axis(f.idx, order, axis=1),
+                            mask=np.take_along_axis(f.mask, order, axis=1),
+                            self_idx=f.self_idx))
+    return tuple(out)
+
+
 def build_compact_batch(graph: CSRGraph, batch_nodes: np.ndarray,
                         rng: np.random.RandomState, num_layers: int = 2,
                         fanout: int = 10, gcn: bool = False,
                         sample_sets: list[list[set]] | None = None,
+                        shuffle_slots: bool = False,
                         native: str = "auto") -> CompactBatch:
     """Build the per-layer padded frontiers of a batch.
 
     sample_sets, when given, is a list (top-down: entry 0 belongs to the
     batch layer) of per-node sample sets *including self*, used verbatim
     instead of fresh sampling: the parity-replay hook.
+
+    shuffle_slots: permute each row's slots with
+    :func:`shuffle_frontier_slots` after the build (the LSTM aggregator).
 
     native: "auto" builds with the C++ engine unless ``sample_sets`` is
     given; "never" takes the numpy builder.
@@ -124,8 +146,12 @@ def build_compact_batch(graph: CSRGraph, batch_nodes: np.ndarray,
     batch_nodes = np.asarray(batch_nodes, dtype=np.int64)
 
     if native == "auto" and sample_sets is None:
-        return _build_compact_batch_native(graph, batch_nodes, rng,
-                                           num_layers, fanout, gcn)
+        cb = _build_compact_batch_native(graph, batch_nodes, rng,
+                                         num_layers, fanout, gcn)
+        if shuffle_slots:
+            cb = dataclasses.replace(
+                cb, frontiers=shuffle_frontier_slots(cb.frontiers, rng))
+        return cb
 
     # --- top-down sampling: union lists (reference src/models.py:246-253)
     levels: list[dict] = [{"nodes": batch_nodes.tolist(), "samp": None}]
@@ -176,9 +202,12 @@ def build_compact_batch(graph: CSRGraph, batch_nodes: np.ndarray,
     x0_ids = np.zeros(u0_pad, dtype=np.int32)
     x0_ids[:len(deepest)] = deepest
 
+    fr = tuple(frontiers)
+    if shuffle_slots:
+        fr = shuffle_frontier_slots(fr, rng)
     return CompactBatch(
         x0_ids=x0_ids,
-        frontiers=tuple(frontiers),
+        frontiers=fr,
         batch_nodes=batch_nodes.astype(np.int32),
         batch_size=len(batch_nodes),
         out_rows=frontiers[-1].idx.shape[0],

@@ -23,11 +23,15 @@ package's ``lax.scan`` epochs are Python step loops here
 JAX epochs, sup and unsup by the step's ``learn_method``); parameters are
 leaf tensors updated in place.
 
-Aggregators: MEAN (gcn mixes the cached mean with self by count, exactly)
-and MAX (the cache is an elementwise max; its refresh has no gradient, and
-the upper layers reduce with ``torch.amax``, which splits the gradient
-equally among tied maxima as ``jnp.max`` does).  The cached-LSTM hybrid
-(ROADMAP A item 13) and bfloat16 compute (item 14) are not ported.
+Aggregators: MEAN (gcn mixes the cached mean with self by count, exactly),
+MAX (the cache is an elementwise max; its refresh has no gradient, and the
+upper layers reduce with ``torch.amax``, which splits the gradient equally
+among tied maxima as ``jnp.max`` does) and LSTM as the cached-LSTM hybrid
+(``graphsage_tpu/train/cached.py:40-52``): the leaf level is the MEAN
+cache, and the live LSTM cell of each upper layer scans its tree-contiguous
+[U, K+1, H] reshape (``lstm_scan``, no gather).  The layer-0 cell is never
+used and gets a zero gradient.  bfloat16 compute (ROADMAP A item 14) is not
+ported.
 """
 
 from __future__ import annotations
@@ -39,18 +43,16 @@ import torch
 from graphsage_torch.losses import supervised_nll, unsup_loss_from_pairbatch
 from graphsage_torch.models.graphsage import GraphSageConfig
 from graphsage_torch.models.layers import classifier_apply, sage_layer_apply
+from graphsage_torch.models.lstm_agg import lstm_scan
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 from graphsage_torch.ops.gather import gather_rows
 from graphsage_torch.sampler.device import sample_frontiers_dense
 from graphsage_torch.train.optim import apply_gradients
 
 
-
 def _check_cached(mcfg: GraphSageConfig) -> None:
-    if mcfg.agg_func == "LSTM":
-        raise NotImplementedError(
-            "the cached-LSTM hybrid is not ported yet (ROADMAP A item 13)")
-    if mcfg.agg_func not in ("MEAN", "MAX"):
+    """MEAN, MAX and LSTM (the hybrid) in float32."""
+    if mcfg.agg_func not in ("MEAN", "MAX", "LSTM"):
         raise ValueError(f"unknown agg_func {mcfg.agg_func!r}")
     if mcfg.compute_dtype != "float32":
         raise NotImplementedError(
@@ -152,7 +154,8 @@ def _upper_layers(sage: dict, h: torch.Tensor, frontiers, fanout: int,
                   agg_func: str, gcn: bool) -> torch.Tensor:
     """Layers 2..L: the dense tree keeps parent u's children at rows
     [u·(K+1), (u+1)·(K+1)) with slot 0 = self, so aggregation is a reshape
-    and a masked reduce, with no index ops."""
+    and a masked reduce (or, for LSTM, the layer's cell scanning the
+    reshape), with no index ops."""
     k = fanout
     for li, frontier in enumerate(frontiers, start=1):
         hr = h.reshape(-1, k + 1, h.shape[1])
@@ -162,6 +165,8 @@ def _upper_layers(sage: dict, h: torch.Tensor, frontiers, fanout: int,
             agg = torch.amax(torch.where(mask[..., None] > 0, hr, neg), dim=1)
             any_valid = (mask > 0).any(dim=1, keepdim=True)
             agg = torch.where(any_valid, agg, torch.zeros_like(agg))
+        elif agg_func == "LSTM":
+            agg = lstm_scan(sage["agg"][li], hr, mask)
         else:
             cnt = mask.sum(dim=1, keepdim=True).clamp_min(1.0)
             agg = torch.einsum("ukh,uk->uh", hr, mask) / cnt

@@ -20,10 +20,11 @@ Port of ``graphsage_tpu/train/cached_trainer.py``.  Against the compact
   ``to_padded_sampled(table_cap, RandomState(seed))``, or the full
   ``to_padded()`` without a cap.
 
-MEAN and MAX train here, with gcn on or off, in float32.  The exact LSTM
-aggregator cannot ride the leaf cache and is refused with ``ValueError``;
-the cached-LSTM hybrid it points to (``lstm_hybrid=True``) is not ported
-yet (ROADMAP A item 13), nor is bfloat16 (item 14).
+MEAN and MAX train here, with gcn on or off, in float32, and so does the
+cached-LSTM hybrid (``lstm_hybrid=True``: MEAN leaf cache, live LSTM cells
+above, ``train/cached.py``).  The exact LSTM aggregator cannot ride the leaf
+cache and is refused with ``ValueError`` without that opt-in.  bfloat16 is
+not ported (ROADMAP A item 14).
 """
 
 from __future__ import annotations
@@ -126,7 +127,7 @@ class CachedTrainer(Trainer):
 
     @staticmethod
     def _check_config(model_cfg: GraphSageConfig) -> None:
-        """MEAN and MAX, float32; the hybrid is ROADMAP A item 13."""
+        """MEAN, MAX and the LSTM hybrid, float32."""
         _check_cached(model_cfg)
 
     def _refresh(self):

@@ -8,8 +8,10 @@ default).  Per batch:
   sampled computation graph as fixed-shape frontier tables (C++ engine),
   on a prefetch thread while the card runs the previous step;
 - the step runs eagerly on the device: feature-table transform, L-layer
-  encode (every aggregation the ``gather_mean`` kernel, with its
-  scatter-add backward), classifier + NLL and/or the unsupervised loss
+  encode (MEAN through the ``gather_mean`` kernel with its scatter-add
+  backward, MAX through ``gather_max`` with its tie-splitting backward,
+  LSTM through ``gather_rows`` and the cell), classifier + NLL and/or the
+  unsupervised loss
   (its score block the ``pair_scores`` kernel), ``backward``, per-model
   clip, SGD;
 - evaluation embeds val/test with fresh sampling and scores micro-F1 with
@@ -21,11 +23,12 @@ Reference hyperparameters are the defaults: joint SGD lr 0.7, clip 5
 100 for 'normal' / 6 for 'margin' (src/utils.py:119-122).
 
 Parameters are ``{"sage": {"layers": [{"weight"}]}, "clf": {"weight",
-"bias"}}`` of float32 leaf tensors, the JAX package's layout, so
-``convert.params_from_jax`` carries a JAX ``Trainer``'s params over
-unchanged.  The trainer runs on the card unless ``device="cpu"`` is given;
-with no card and no device it raises.  Training is MEAN in float32: MAX,
-LSTM and bfloat16 raise (ROADMAP A items 12-14).
+"bias"}}`` (with LSTM also ``"sage": {"agg": [cell, ...]}``) of float32 leaf
+tensors, the JAX package's layout, so ``convert.params_from_jax`` carries a
+JAX ``Trainer``'s params over unchanged.  The trainer runs on the card
+unless ``device="cpu"`` is given; with no card and no device it raises.
+MEAN, MAX and LSTM train in float32 (LSTM batches get their slots shuffled
+on the host, as in the JAX package); bfloat16 raises (ROADMAP A item 14).
 """
 
 from __future__ import annotations
@@ -162,7 +165,7 @@ class Trainer:
 
     @staticmethod
     def _check_config(model_cfg: GraphSageConfig) -> None:
-        """The compact pipeline trains MEAN in float32."""
+        """The compact pipeline trains MEAN, MAX and LSTM in float32."""
         _check_trainable(model_cfg)
         if model_cfg.compute_dtype != "float32":
             raise NotImplementedError(
@@ -204,7 +207,8 @@ class Trainer:
         padded[:len(nodes)] = nodes
         cb = build_compact_batch(self.ds.graph, padded, self.rng,
                                  num_layers=self.mcfg.num_layers,
-                                 fanout=self.tcfg.fanout, gcn=self.mcfg.gcn)
+                                 fanout=self.tcfg.fanout, gcn=self.mcfg.gcn,
+                                 shuffle_slots=self.mcfg.agg_func == "LSTM")
         with torch.no_grad():
             embs = self._encode(sage_params, cb)
         return embs.float().cpu().numpy()[:len(nodes)]
@@ -266,7 +270,7 @@ class Trainer:
         cb = build_compact_batch(
             self.ds.graph, pb.unique_nodes, self.rng,
             num_layers=self.mcfg.num_layers, fanout=tcfg.fanout,
-            gcn=self.mcfg.gcn)
+            gcn=self.mcfg.gcn, shuffle_slots=self.mcfg.agg_func == "LSTM")
         u_pad = cb.out_rows
         labels = np.zeros(u_pad, dtype=np.int32)
         real = pb.unique_nodes[:pb.num_unique]

@@ -11,7 +11,9 @@ Tolerances (float32; the same sums in another order):
 - refresh: rtol=atol=1e-6 (MEAN); MAX exact; counts exact;
 - forwards: rtol=atol=1e-5; parameter gradients rtol=atol=1e-5;
 - one step: loss rtol 1e-4, updated params atol 1e-5;
-- an epoch of 4 steps at lr 0.7: losses rtol 1e-4, params atol 1e-4.
+- an epoch of 4 steps at lr 0.7: losses rtol 1e-4, params atol 1e-4;
+- a whole fit with the JAX draws replayed (MAX gcn; the cached-LSTM
+  hybrid): losses rtol 1e-4, final params atol 1e-4.
 """
 
 import dataclasses
@@ -152,14 +154,15 @@ def test_gcn_mix_matches_jax(is_max):
 
 # ------------------------------------------------------------ forward
 
-@pytest.mark.parametrize("agg", ["MEAN", "MAX"])
+@pytest.mark.parametrize("agg", ["MEAN", "MAX", "LSTM"])
 @pytest.mark.parametrize("gcn", [False, True])
 @pytest.mark.parametrize("b", [8, 32], ids=["per_occurrence", "full_table"])
 def test_cached_forward_matches_jax_in_both_branches(graph, agg, gcn, b):
     """b=8 (m1=40) takes the per-occurrence branch by the byte rule, b=32
     (m1=160) the full table, in both packages; the port is also run with
     the other branch forced, which must give the same values and
-    gradients."""
+    gradients.  LSTM is the cached-LSTM hybrid: the layer-2 cell gets the
+    JAX gradient, the layer-0 cell none."""
     ds, pad = graph
     jcfg = JaxConfig(num_layers=2, input_size=D, out_size=H, gcn=gcn,
                      agg_func=agg)
@@ -197,6 +200,15 @@ def test_cached_forward_matches_jax_in_both_branches(graph, agg, gcn, b):
                                  want_g["sage"]["layers"]):
             np.testing.assert_allclose(layer["weight"].grad.numpy(),
                                        np.asarray(jlayer["weight"]), **FWD)
+        if agg == "LSTM":
+            cell0, cell1 = p["sage"]["agg"]
+            assert all(v.grad is None for v in cell0.values())
+            assert not any(np.asarray(v).any()
+                           for v in want_g["sage"]["agg"][0].values())
+            for k, v in cell1.items():
+                np.testing.assert_allclose(
+                    v.grad.numpy(), np.asarray(want_g["sage"]["agg"][1][k]),
+                    **FWD)
 
 
 def test_cached_forward_equals_full_graph_embeddings_under_take_all():
@@ -506,7 +518,8 @@ def test_train_epoch_batches_equal_the_jax_trainers(small_ds, learn_method,
             assert jp is None and pp is None
 
 
-def replay_jax_trainer(jds, ds, jcfg, kw: dict, table_cap: int):
+def replay_jax_trainer(jds, ds, jcfg, kw: dict, table_cap: int,
+                       lstm_hybrid: bool = False):
     """Train the JAX package's CachedTrainer (plain sup batches) with
     ``fit``, recording every key its refreshes and hops draw with, in call
     order; then the port's CachedTrainer from the same initial params and
@@ -516,7 +529,8 @@ def replay_jax_trainer(jds, ds, jcfg, kw: dict, table_cap: int):
     from graphsage_tpu.train.trainer import TrainConfig as JaxTrainConfig
 
     jtr = jct.CachedTrainer(jds, jcfg, JaxTrainConfig(**kw),
-                            table_cap=table_cap, extend_batches=False)
+                            table_cap=table_cap, extend_batches=False,
+                            lstm_hybrid=lstm_hybrid)
     init = jax.device_get(jtr.params)
     hops = jcfg.num_layers - 1
     keys, jax_losses = [], []
@@ -548,10 +562,11 @@ def replay_jax_trainer(jds, ds, jcfg, kw: dict, table_cap: int):
 
     jtr._epoch_fn, jtr._refresh_fn, jtr._fwd_fn = epoch, refresh, fwd
     jtr.fit()
+    jtr.init_params = init
 
     tr = CachedTrainer(ds, _port_cfg(jcfg), TrainConfig(**kw),
                        table_cap=table_cap, extend_batches=False,
-                       params=init, device="cpu")
+                       lstm_hybrid=lstm_hybrid, params=init, device="cpu")
     np.testing.assert_array_equal(tr.neighbors.numpy(), jtr.neighbors)
     tr.hop = JaxHop(keys, jtr)
     losses = []
@@ -583,14 +598,47 @@ def test_cached_trainer_replays_the_jax_trainer(graph):
     assert tr.history == jtr.history
 
 
-def test_lstm_needs_the_opt_in_and_the_hybrid_is_not_ported(small_ds):
+def test_cached_lstm_hybrid_replays_the_jax_trainer(graph):
+    """The cached-LSTM hybrid (sup, plain batches, lr 0.7, two epochs of
+    fit): with the JAX trainer's draws replayed, the port's step losses
+    (rtol 1e-4), final params (atol 1e-4) and val F1 history equal the JAX
+    trainer's, and both leave the layer-0 cell as it was drawn."""
+    ds, _ = graph
+    port_ds = synthetic_power_law(N, 5 * N, num_feats=D, num_classes=4,
+                                  seed=4)
+    jcfg = JaxConfig(num_layers=2, input_size=D, out_size=H,
+                     agg_func="LSTM")
+    kw = dict(learn_method="sup", epochs=2, b_sz=32, fanout=FANOUT, lr=0.7,
+              seed=3, verbose=False)
+    jtr, tr, jax_losses, losses = replay_jax_trainer(
+        ds, port_ds, jcfg, kw, table_cap=8, lstm_hybrid=True)
+    assert len(losses) == 2 * -(-len(ds.train_nodes) // 32)
+    np.testing.assert_allclose(losses, jax_losses, rtol=1e-4)
+    _assert_params_close(tr.params, jax.device_get(jtr.params), atol=1e-4)
+    assert tr.history == jtr.history
+    cell0 = jtr.init_params["sage"]["agg"][0]
+    for k, v in cell0.items():
+        np.testing.assert_array_equal(
+            tr.params["sage"]["agg"][0][k].detach().numpy(), v)
+        np.testing.assert_array_equal(
+            np.asarray(jtr.params["sage"]["agg"][0][k]), v)
+    assert not np.array_equal(
+        tr.params["sage"]["agg"][1]["w_ih"].detach().numpy(),
+        jtr.init_params["sage"]["agg"][1]["w_ih"])
+
+
+def test_lstm_needs_the_opt_in(small_ds):
+    """The exact LSTM aggregator cannot ride the leaf cache: without
+    lstm_hybrid the trainer refuses; with it, it trains the hybrid."""
     mcfg = GraphSageConfig(num_layers=2, input_size=12, out_size=12,
                            agg_func="LSTM")
     tcfg = TrainConfig(b_sz=32, epochs=1, fanout=4, verbose=False)
     with pytest.raises(ValueError, match="lstm_hybrid"):
         CachedTrainer(small_ds, mcfg, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        CachedTrainer(small_ds, mcfg, tcfg, lstm_hybrid=True, device="cpu")
+    tr = CachedTrainer(small_ds, mcfg, tcfg, lstm_hybrid=True,
+                       extend_batches=False, device="cpu")
+    tr.fit()
+    assert np.isfinite(tr.step_losses).all() and len(tr.history) == 1
 
 
 if __name__ == "__main__":

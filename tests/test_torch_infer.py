@@ -173,17 +173,69 @@ def test_bundle_with_wrong_shapes_is_refused(tmp_path):
         infer.load_bundle(path)
 
 
-def test_lstm_raises():
-    g, feats = _graph()
-    cfg = GraphSageConfig(num_layers=2, input_size=12, out_size=8,
-                          agg_func="LSTM")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer.full_graph_embeddings({}, cfg, feats, g.to_padded(),
-                                    device="cpu")
-    mean_cfg = GraphSageConfig(num_layers=2, input_size=12, out_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer.InferenceSession({}, mean_cfg, feats, g.to_padded(),
-                               lstm_hybrid=True, device="cpu")
+@pytest.mark.parametrize("gcn,lstm_hybrid,block", [
+    (False, False, 7), (True, False, 7), (False, True, 7),
+    (False, False, None)], ids=["lstm", "lstm_gcn", "hybrid", "one_block"])
+def test_lstm_serving_matches_jax(gcn, lstm_hybrid, block):
+    """LSTM and cached-LSTM-hybrid full-graph embeddings against JAX's, the
+    port in blocks of 7 rows (37 rows: five full blocks and a tail) or
+    one."""
+    g, feats = _graph(seed=17)
+    jcfg, params = _jax_model("LSTM", gcn, seed=6)
+    pad = g.to_padded()
+    want = jax_infer.full_graph_embeddings(params["sage"], jcfg, feats, pad,
+                                           lstm_hybrid=lstm_hybrid)
+    got = infer.full_graph_embeddings(params["sage"], _port_cfg(jcfg), feats,
+                                      pad, block=block,
+                                      lstm_hybrid=lstm_hybrid, device="cpu")
+    assert got.shape == (37, 8) and np.abs(got).sum() > 0
+    np.testing.assert_allclose(got, want, **F32)
+    if lstm_hybrid:
+        # the hybrid never reads the layer-0 cell
+        sage = dict(params["sage"])
+        sage["agg"] = [jax.tree_util.tree_map(np.zeros_like, sage["agg"][0]),
+                       sage["agg"][1]]
+        np.testing.assert_array_equal(
+            infer.full_graph_embeddings(sage, _port_cfg(jcfg), feats, pad,
+                                        block=block, lstm_hybrid=True,
+                                        device="cpu"), got)
+
+
+@pytest.mark.parametrize("lstm_hybrid", [False, True])
+def test_lstm_sessions_and_bundles_match_jax(lstm_hybrid, tmp_path):
+    """An LSTM model (and a hybrid one, meta["lstm_hybrid"]) through a
+    bundle round trip and InferenceSession, against the JAX session."""
+    g, feats = _graph(seed=19)
+    jcfg, params = _jax_model("LSTM", seed=7)
+    pad = g.to_padded()
+    jsess = jax_infer.InferenceSession(params, jcfg, feats, pad,
+                                       lstm_hybrid=lstm_hybrid)
+    path = str(tmp_path / "lstm")
+    meta = {"lstm_hybrid": True} if lstm_hybrid else None
+    infer.export_bundle(path, params, _port_cfg(jcfg), 4, meta=meta)
+    restored, cfg, _, _ = infer.load_bundle(path)
+    assert [c["w_ih"].shape for c in restored["sage"]["agg"]] == [
+        (48, 12), (32, 8)]
+    sess = infer.InferenceSession.from_bundle(path, feats, pad, block=5,
+                                              device="cpu")
+    assert sess.lstm_hybrid == lstm_hybrid
+    nodes = np.array([0, 5, 17, 36])
+    np.testing.assert_allclose(sess.embeddings(), jsess.embeddings(), **F32)
+    np.testing.assert_allclose(sess.log_probs(nodes), jsess.log_probs(nodes),
+                               **F32)
+    np.testing.assert_array_equal(sess.predict(nodes), jsess.predict(nodes))
+
+
+def test_card_block_rule():
+    """On the card MEAN and MAX layers aggregate all rows in one launch;
+    LSTM layers take the byte budget at the layer's input width (3,483
+    rows at 32 slots of 602 floats, 16,384 at 128) or the request."""
+    assert infer.card_block("MEAN", 100_000, 32, 602, 4) == 100_000
+    assert infer.card_block("MAX", 100_000, 32, 602, 2) == 100_000
+    assert infer.card_block("LSTM", 100_000, 32, 602, 4) == 3483
+    assert infer.card_block("LSTM", 100_000, 32, 128, 4) == 16384
+    assert infer.card_block("LSTM", 100_000, 32, 128, 4, 1000) == 1000
+    assert infer.card_block("LSTM", 10, 32, 128, 4) == 10
 
 
 def test_no_device_without_a_card_raises(monkeypatch):
@@ -239,7 +291,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.utils.prefetch, graphsage_torch.models.graphsage, "
         "graphsage_torch.ops.gather, graphsage_torch.sampler.device, "
         "graphsage_torch.train.cached, graphsage_torch.train.cached_trainer, "
-        "graphsage_torch.microbench, graphsage_torch.kernel_ab\n"
+        "graphsage_torch.microbench, graphsage_torch.kernel_ab, "
+        "graphsage_torch.models.lstm_agg\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n")

@@ -14,11 +14,11 @@ Tolerances on the card: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps
 Pair scores in bfloat16: within 2 ulps plus 1e-5, because both versions sum
 in float32 in other orders and round once, and near 0, where a dot product
 cancels, a float32 difference of ~1e-5 is many bf16 ulps.
-Gradients (gather-mean's scatter-add, the score block's analytic backward,
-the row gather's ``index_add_``) against autograd through the plain
-versions: float32 rtol=atol=1e-5 (``index_add_`` adds with atomics, in no
-fixed order).  The row gather is a copy: equal to ``index_select`` bit for
-bit.
+Gradients (gather-mean's scatter-add, gather-max's tie-splitting
+scatter-add, the score block's analytic backward, the row gather's
+``index_add_``) against autograd through the plain versions: float32
+rtol=atol=1e-5 (``index_add_`` adds with atomics, in no fixed order).  The
+row gather is a copy: equal to ``index_select`` bit for bit.
 """
 
 import ctypes
@@ -264,18 +264,37 @@ def test_empty_batch_launches_nothing_on_card():
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_autograd_on_card():
-    """MAX has no backward on the card yet and refuses; MEAN gives one."""
+@pytest.mark.parametrize("case", ["random", "empty_rows", "wide602",
+                                  "ties"])
+def test_gather_max_backward_on_card(case):
+    """max_aggregate's tie-splitting backward on the card (the gather_rows
+    kernel re-gathers the slot rows, index_add_ scatters) against autograd
+    through the plain version (amax over the gather), also through a
+    strided view; "ties" duplicates rows so that 2 and 3 slots tie, and
+    relu-like zeros tie everywhere."""
     dev = _card()
-    embed, idx, mask = _case("random")
-    e = torch.from_numpy(embed).to(dev).requires_grad_(True)
+    name = "random" if case == "ties" else case
+    embed, idx, mask = _case(name, seed=4)
+    if case == "ties":
+        embed[1::3] = embed[0::3][:len(embed[1::3])]
+        embed[2::5] = embed[0]
+        embed = np.maximum(embed, 0.0)
     i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
-    with pytest.raises(NotImplementedError, match="backward"):
-        agg.max_aggregate(e, i, m)
-    with torch.no_grad():
-        agg.max_aggregate(e, i, m)
-    agg.mean_aggregate(e, i, m).sum().backward()
-    assert e.grad is not None and e.grad.shape == e.shape
+    g = torch.randn(idx.shape[0], embed.shape[1],
+                    generator=torch.Generator().manual_seed(5)).to(dev)
+    wide = torch.from_numpy(np.concatenate([embed, embed], axis=1)).to(dev)
+    d = embed.shape[1]
+    before = dict(agg.LAUNCHES)
+    grads = []
+    for fn in (agg.max_aggregate, agg.max_aggregate_plain):
+        w = wide.clone().requires_grad_(True)
+        (fn(w[:, d:], i, m) * g).sum().backward()
+        grads.append(w.grad)
+    # the forward's gather_max and the backward's tie gather
+    assert agg.LAUNCHES["gather_max"] == before["gather_max"] + 1
+    assert agg.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    assert not grads[0][:, :d].any()
 
 
 @pytest.mark.gpu

@@ -125,10 +125,20 @@ def test_init_is_seeded():
     assert not torch.equal(a["layers"][1]["weight"], c["layers"][1]["weight"])
 
 
-def test_lstm_init_raises():
-    cfg = GraphSageConfig(agg_func="LSTM")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_graphsage(torch.Generator(), cfg)
+def test_lstm_module_draws_as_init_graphsage():
+    """GraphSage with LSTM holds a cell a layer of that layer's input size,
+    drawn in init_graphsage's order (layer weight, then its cell)."""
+    cfg = GraphSageConfig(num_layers=2, input_size=9, out_size=5,
+                          agg_func="LSTM")
+    want = init_graphsage(torch.Generator().manual_seed(4), cfg)
+    got = GraphSage(cfg, generator=torch.Generator().manual_seed(4)).params()
+    assert sorted(got) == ["agg", "layers"]
+    flat_want = convert.flatten_params(want)
+    flat_got = convert.flatten_params(got)
+    assert sorted(flat_got) == sorted(flat_want)
+    for k in flat_want:
+        assert torch.equal(flat_got[k], flat_want[k]), k
+    assert flat_got["agg/0/w_ih"].shape == (36, 9)
 
 
 def test_modules_call_the_functions():
@@ -144,7 +154,8 @@ def test_modules_call_the_functions():
 
 
 @pytest.mark.parametrize("agg,gcn", [("MEAN", False), ("MEAN", True),
-                                     ("MAX", False), ("MAX", True)])
+                                     ("MAX", False), ("MAX", True),
+                                     ("LSTM", False), ("LSTM", True)])
 def test_graphsage_module_matches_jax_graphsage_apply(agg, gcn):
     """GraphSage.forward over one slot table == the JAX encoder with every
     frontier equal to that table (self_idx = the row itself)."""
@@ -166,8 +177,9 @@ def test_graphsage_module_matches_jax_graphsage_apply(agg, gcn):
                                       out_size=7, agg_func=agg, gcn=gcn),
                       generator=torch.Generator())
     with torch.no_grad():
-        for dst, src in zip(model.params()["layers"], jparams["layers"]):
-            dst["weight"].copy_(torch.from_numpy(np.array(src["weight"])))
+        flat = convert.flatten_params(model.params())
+        for key, value in convert.flatten_params(jparams).items():
+            flat[key].copy_(torch.from_numpy(np.array(value)))
         got = model(torch.from_numpy(h), torch.from_numpy(idx),
                     torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-4, atol=1e-5)

@@ -57,6 +57,44 @@ def test_compact_batch_is_bit_identical(graphs, seed, gcn, native_mode):
     assert rng.randint(2**31) == jrng.randint(2**31)
 
 
+@pytest.mark.parametrize("native_mode", ["auto", "never"])
+@pytest.mark.parametrize("gcn", [False, True])
+def test_slot_shuffle_is_bit_identical(graphs, gcn, native_mode):
+    """shuffle_slots (the LSTM aggregator's slot order) draws after the
+    sampling from the same RandomState, so the shuffled frontiers equal the
+    JAX package's bit for bit; each row holds the unshuffled row's slots in
+    another order."""
+    ds, jds = graphs
+    batch = np.random.RandomState(4).choice(600, 20, replace=False)
+    rng, jrng = np.random.RandomState(5), np.random.RandomState(5)
+    for _ in range(2):
+        state = rng.get_state()
+        got = build_compact_batch(ds.graph, batch, rng, num_layers=2,
+                                  fanout=5, gcn=gcn, shuffle_slots=True,
+                                  native=native_mode)
+        want = jax_build(jds.graph, batch, jrng, num_layers=2, fanout=5,
+                         gcn=gcn, shuffle_slots=True, native=native_mode)
+        _assert_batches_equal(got, want)
+        plain = build_compact_batch(ds.graph, batch, _rng_at(state),
+                                    num_layers=2, fanout=5, gcn=gcn,
+                                    native=native_mode)
+        moved = False
+        for fs, fp in zip(got.frontiers, plain.frontiers):
+            np.testing.assert_array_equal(fs.self_idx, fp.self_idx)
+            np.testing.assert_array_equal(np.sort(fs.idx * fs.mask, axis=1),
+                                          np.sort(fp.idx * fp.mask, axis=1))
+            np.testing.assert_array_equal(fs.mask.sum(1), fp.mask.sum(1))
+            moved |= not np.array_equal(fs.mask, fp.mask)
+        assert moved
+    assert rng.randint(2**31) == jrng.randint(2**31)
+
+
+def _rng_at(state) -> np.random.RandomState:
+    rng = np.random.RandomState()
+    rng.set_state(state)
+    return rng
+
+
 def test_replay_hook_uses_the_given_sample_sets(graphs):
     ds, jds = graphs
     batch = np.array([3, 9, 27])

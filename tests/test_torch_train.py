@@ -1,17 +1,22 @@
 """The port's training path (graphsage_torch.models.graphsage,
-.ops.aggregate's gather-mean backward, .train, .cli) against the JAX
-package's, on the CPU, from the same numpy inputs, the same sampled
+.ops.aggregate's gather-mean and gather-max backwards, .train, .cli) against
+the JAX package's, on the CPU, from the same numpy inputs, the same sampled
 frontiers and the same initial weights (carried over with params_from_jax).
 
 Tolerances:
 - encoder forward and parameter gradients: rtol 1e-5, atol 1e-6 (float32,
   the same sums and products in another order);
-- gather-mean backward: rtol=atol=1e-6 (one product and a sum per slot);
-- one training epoch (10 steps, lr 0.7): step losses rtol 1e-4, final
-  params atol 2e-4.  Both trainers see bit-identical batches; the
-  differences are float32 roundings of the same arithmetic taken in
-  another order, carried through the SGD updates.  Measured on this CPU:
-  at most 3.2e-6 relative on a loss and 1.2e-5 on a weight (of ~0.75).
+- gather-mean and gather-max backwards: rtol=atol=1e-6 (one product, a
+  division by the tie count and a sum per slot);
+- one training epoch (10 steps, lr 0.7), MEAN, MAX and LSTM: step losses
+  rtol 1e-4, final params atol 2e-4.  Both trainers see bit-identical
+  batches (LSTM: bit-identical shuffled slots); the differences are float32
+  roundings of the same arithmetic taken in another order, carried through
+  the SGD updates.  Measured on a CPU for MEAN: at most 3.2e-6 relative on
+  a loss and 1.2e-5 on a weight (of ~0.75).  MAX and LSTM: sup runs free
+  at these bounds; plus_unsup runs in lockstep from the JAX params of each
+  step (free, its rounding differences reach 1e-2 relative within 10
+  steps), each step's update within atol 2e-4.
 """
 
 import dataclasses
@@ -27,7 +32,9 @@ from graphsage_tpu.data import synthetic_power_law as jax_power_law
 from graphsage_tpu.models import GraphSageConfig as JaxConfig
 from graphsage_tpu.models import graphsage as jax_graphsage
 from graphsage_tpu.models import init_graphsage as jax_init_graphsage
-from graphsage_tpu.ops.pallas_aggregate import _pallas_mean_bwd
+from graphsage_tpu.ops import aggregate as jax_agg
+from graphsage_tpu.ops.pallas_aggregate import (_pallas_max_bwd,
+                                                _pallas_mean_bwd)
 from graphsage_tpu.sampler import build_compact_batch as jax_build
 from graphsage_tpu.train import Trainer as JaxTrainer
 from graphsage_tpu.train import TrainConfig as JaxTrainConfig
@@ -115,12 +122,14 @@ def test_use_pretransform_rule_matches_jax():
 
 def test_unported_training_configs_raise():
     ds = synthetic_power_law(100, 400, num_feats=8, seed=0)
-    for kw, item in ((dict(agg_func="MAX"), "item 12"),
-                     (dict(agg_func="LSTM"), "item 13"),
-                     (dict(compute_dtype="bfloat16"), "item 14")):
-        cfg = GraphSageConfig(num_layers=2, input_size=8, out_size=4, **kw)
-        with pytest.raises(NotImplementedError, match=item):
-            Trainer(ds, cfg, TrainConfig(verbose=False), device="cpu")
+    cfg = GraphSageConfig(num_layers=2, input_size=8, out_size=4,
+                          compute_dtype="bfloat16")
+    with pytest.raises(NotImplementedError, match="item 14"):
+        Trainer(ds, cfg, TrainConfig(verbose=False), device="cpu")
+    with pytest.raises(ValueError, match="agg_func"):
+        Trainer(ds, GraphSageConfig(num_layers=2, input_size=8, out_size=4,
+                                    agg_func="SUM"),
+                TrainConfig(verbose=False), device="cpu")
 
 
 # ------------------------------------------------------------ gather-mean
@@ -152,12 +161,82 @@ def test_gather_mean_backward_matches_jax(case):
     np.testing.assert_array_equal(wide.grad[:, d:].numpy(), e.grad.numpy())
 
 
-def test_max_still_refuses_autograd_only_on_the_card():
+def _tie_case():
+    """embed rows duplicated so that slots tie: row 0 of the output has 3
+    valid slots holding the maximum in column 0 and 2 in column 1, and a
+    masked slot that ties too; row 1 ties twice in every column; row 2 has
+    no valid slot; row 3 is random."""
+    rng = np.random.RandomState(8)
+    embed = rng.randn(9, 4).astype(np.float32)
+    embed[0] = [5.0, 1.0, -1.0, 0.0]
+    embed[1] = [5.0, 4.0, -2.0, 0.0]
+    embed[2] = [5.0, 4.0, -3.0, 0.0]
+    embed[3] = [5.0, 9.0, 7.0, 0.0]              # masked in row 0
+    embed[4] = embed[5] = rng.randn(4).astype(np.float32) + 3.0
+    idx = np.array([[0, 1, 2, 3, 6],
+                    [4, 5, 7, 5, 8],
+                    [0, 1, 2, 3, 4],
+                    [3, 8, 6, 1, 7]], np.int32)
+    mask = np.array([[1, 1, 1, 0, 0],
+                     [1, 1, 0, 0, 0],
+                     [0, 0, 0, 0, 0],
+                     [1, 0, 1, 1, 1]], np.float32)
+    return embed, idx, mask
+
+
+@pytest.mark.parametrize("case", ["ties", "random", "empty_rows"])
+def test_gather_max_backward_matches_jax(case):
+    """The gather-max Function's gradient against jax.grad of the XLA
+    max_aggregate and against _pallas_max_bwd, at 2- and 3-way ties (with a
+    masked slot that ties); autograd through the plain version gives the
+    same equal split."""
+    if case == "ties":
+        embed, idx, mask = _tie_case()
+    else:
+        embed, idx, mask = _case(case, seed=7)
+    g = np.random.RandomState(9).randn(idx.shape[0],
+                                       embed.shape[1]).astype(np.float32)
+    ja = tuple(map(jnp.asarray, (embed, idx, mask)))
+    out = jax_agg.max_aggregate(*ja)
+    want = jax.grad(lambda e: jnp.sum(jax_agg.max_aggregate(e, *ja[1:])
+                                      * g))(ja[0])
+    want_pallas, _, _ = _pallas_max_bwd(True, "max", (*ja, out),
+                                        jnp.asarray(g))
+    np.testing.assert_allclose(np.asarray(want_pallas), np.asarray(want),
+                               rtol=1e-6, atol=1e-6)
+    for fn in (agg.max_aggregate, agg.max_aggregate_plain):
+        e = torch.from_numpy(embed).requires_grad_(True)
+        got = fn(e, torch.from_numpy(idx), torch.from_numpy(mask))
+        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(out))
+        (got * torch.from_numpy(g)).sum().backward()
+        np.testing.assert_allclose(e.grad.numpy(), np.asarray(want),
+                                   rtol=1e-6, atol=1e-6)
+    if case == "ties":
+        # row 0 alone: the 3-way and 2-way ties split equally, and the
+        # masked slot that ties (embed row 3) gets nothing
+        e = torch.from_numpy(embed).requires_grad_(True)
+        g0 = np.zeros_like(g)
+        g0[0] = g[0]
+        (agg.max_aggregate(e, torch.from_numpy(idx), torch.from_numpy(mask))
+         * torch.from_numpy(g0)).sum().backward()
+        d = e.grad.numpy()
+        np.testing.assert_allclose(d[[0, 1, 2], 0], g[0, 0] / 3, rtol=1e-6)
+        np.testing.assert_allclose(d[[1, 2], 1], g[0, 1] / 2, rtol=1e-6)
+        assert d[0, 1] == 0 and not d[3].any()
+
+
+def test_max_backward_goes_through_the_function_on_both_devices():
+    """max_aggregate is an autograd Function whose backward is
+    max_aggregate_backward on the CPU as on the card."""
     embed, idx, mask = _case("random")
     e = torch.from_numpy(embed).requires_grad_(True)
     out = agg.max_aggregate(e, torch.from_numpy(idx), torch.from_numpy(mask))
-    out.sum().backward()          # the plain version on the CPU
-    assert e.grad is not None
+    assert type(out.grad_fn).__name__ == "_GatherMaxBackward"
+    out.sum().backward()
+    want = agg.max_aggregate_backward(torch.ones_like(out), e.detach(),
+                                      torch.from_numpy(idx),
+                                      torch.from_numpy(mask), out.detach())
+    assert torch.equal(e.grad, want)
 
 
 # ------------------------------------------------------------ optimizer
@@ -192,9 +271,9 @@ def datasets():
             dataclasses.replace(jds, train_nodes=jds.train_nodes[:200]))
 
 
-def _run_both(datasets, **tcfg):
+def _run_both(datasets, model=None, **tcfg):
     ds, jds = datasets
-    jm = JaxConfig(num_layers=2, input_size=64, out_size=16)
+    jm = JaxConfig(num_layers=2, input_size=64, out_size=16, **(model or {}))
     jt = JaxTrainConfig(epochs=1, b_sz=20, seed=5, verbose=False, **tcfg)
     jtr = JaxTrainer(jds, jm, jt)
     params0 = jax.device_get(jtr.params)
@@ -233,6 +312,73 @@ def test_trainer_matches_jax_step_for_step(datasets, learn_method,
                     jax.tree_util.tree_leaves(got)):
         np.testing.assert_allclose(g, w, rtol=0, atol=2e-4)
     # the host RNG streams stayed in step
+    assert tr.rng.randint(2**31) == jtr.rng.randint(2**31)
+    jtr.evaluate()
+    tr.evaluate()
+    assert tr.history[-1]["val_f1"] == pytest.approx(
+        jtr.history[-1]["val_f1"], abs=0.01)
+
+
+@pytest.mark.parametrize("agg_func,learn_method,gcn", [
+    ("MAX", "sup", False), ("MAX", "sup", True),
+    ("MAX", "plus_unsup", False), ("MAX", "plus_unsup", True),
+    ("LSTM", "sup", False), ("LSTM", "plus_unsup", True)])
+def test_max_and_lstm_trainers_match_jax_step_for_step(
+        datasets, agg_func, learn_method, gcn, monkeypatch):
+    """A 10-step epoch of compact MAX (gather-max with its tie-splitting
+    backward) and LSTM (shuffled slots, the cell on every layer) against
+    the JAX Trainer (impl "xla"), then one evaluation.  sup runs free.
+    plus_unsup runs in lockstep: each port step starts from the JAX
+    params of that step, and its loss and update are compared (free, the
+    unsupervised loss at lr 0.7 carries a rounding difference to 1e-2
+    relative within 10 steps for MAX and LSTM)."""
+    monkeypatch.setenv("GS_EXACT_NEG_BUDGET_S", "0")
+    jtr, tr, jax_losses = _run_both(datasets,
+                                    model=dict(agg_func=agg_func, gcn=gcn),
+                                    learn_method=learn_method)
+    if agg_func == "LSTM":
+        assert [c["w_ih"].shape[1] for c in tr.params["sage"]["agg"]] == [
+            64, 16]
+    lockstep = learn_method == "plus_unsup"
+    jax_params = []
+    jax_step = jtr._step_fn
+
+    def recording(params, *args):
+        out = jax_step(params, *args)
+        jax_params.append((jax.device_get(params), jax.device_get(out[0])))
+        return out
+
+    jtr._step_fn = recording
+    jtr.train_epoch()
+    port_step, step_errs = tr._step, []
+
+    def from_jax_params(*args):
+        before, after = jax_params[len(step_errs)]
+        with torch.no_grad():
+            for p, q in zip(jax.tree_util.tree_leaves(tr.params),
+                            jax.tree_util.tree_leaves(before)):
+                p.copy_(torch.from_numpy(np.array(q)))
+        loss = port_step(*args)
+        step_errs.append(max(
+            float(np.abs(p.detach().numpy() - np.asarray(q)).max())
+            for p, q in zip(jax.tree_util.tree_leaves(tr.params),
+                            jax.tree_util.tree_leaves(after))))
+        return loss
+
+    if lockstep:
+        tr._step = from_jax_params
+    tr.train_epoch()
+    assert len(tr.step_losses) == len(jax_losses) == 10
+    np.testing.assert_allclose(tr.step_losses, jax_losses, rtol=1e-4)
+    want = jax.device_get(jtr.params)
+    got = jax.tree_util.tree_map(lambda x: x.detach().numpy(), tr.params)
+    assert (jax.tree_util.tree_structure(got)
+            == jax.tree_util.tree_structure(want))
+    for w, g in zip(jax.tree_util.tree_leaves(want),
+                    jax.tree_util.tree_leaves(got)):
+        np.testing.assert_allclose(g, w, rtol=0, atol=2e-4)
+    if lockstep:
+        assert len(step_errs) == 10 and max(step_errs) <= 2e-4, step_errs
     assert tr.rng.randint(2**31) == jtr.rng.randint(2**31)
     jtr.evaluate()
     tr.evaluate()
@@ -334,15 +480,78 @@ def test_cli_trains_exports_and_serves(tmp_path, capsys):
     (["--pipeline", "cached_dist"], "item 16"),
     (["--pipeline", "dist"], "item 16"),
     (["--resume", "x"], "item 8"),
-    (["--agg_func", "MAX"], "item 12"),
-    (["--pipeline", "cached", "--agg_func", "LSTM", "--lstm_hybrid"],
-     "item 13"),
     (["--pipeline", "cached", "--compute_dtype", "bfloat16"], "item 14"),
 ])
 def test_cli_refuses_what_is_not_ported(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--dataSet", "powerlaw:100:400", "--device", "cpu",
                   "--epochs", "1", "--quiet", *flags])
+
+
+def test_cli_cached_lstm_needs_the_hybrid_flag():
+    with pytest.raises(ValueError, match="lstm_hybrid"):
+        cli.main(["--dataSet", "powerlaw:100:400", "--device", "cpu",
+                  "--epochs", "1", "--quiet", "--pipeline", "cached",
+                  "--agg_func", "LSTM"])
+
+
+@pytest.mark.parametrize("agg_func", ["MAX", "LSTM"])
+def test_cli_trains_max_and_lstm_exports_and_serves(agg_func, tmp_path,
+                                                    monkeypatch):
+    """--agg_func MAX / LSTM on the compact pipeline: trains, exports the
+    best-val model (with its LSTM cells), and the bundle serves the same
+    table as full_graph_embeddings of the snapshot."""
+    monkeypatch.setenv("GS_EXACT_NEG_BUDGET_S", "0")
+    out = str(tmp_path / agg_func)
+    trainer, best = cli.run([
+        "--dataSet", "powerlaw:300:1200", "--agg_func", agg_func,
+        "--learn_method", "plus_unsup", "--epochs", "1", "--b_sz", "100",
+        "--hidden", "8", "--device", "cpu", "--export", out, "--seed", "3",
+        "--quiet"])
+    assert type(trainer).__name__ == "Trainer"
+    assert np.isfinite(trainer.step_losses).all()
+    params, mcfg, _, meta = infer.load_bundle(out)
+    assert mcfg.agg_func == agg_func and "lstm_hybrid" not in meta
+    assert ("agg" in params["sage"]) == (agg_func == "LSTM")
+    pad = trainer.ds.graph.to_padded()
+    sess = infer.InferenceSession.from_bundle(out, trainer.ds.features, pad,
+                                              device="cpu")
+    want = infer.full_graph_embeddings(best["params"]["sage"], mcfg,
+                                       trainer.ds.features, pad,
+                                       device="cpu")
+    np.testing.assert_array_equal(sess.embeddings(), want)
+    assert np.isfinite(want).all() and np.abs(want).sum() > 0
+
+
+def test_cli_cached_lstm_hybrid_exports_and_serves_the_hybrid(tmp_path):
+    """--pipeline cached --agg_func LSTM --lstm_hybrid --export: the bundle
+    records lstm_hybrid, and from_bundle serves the hybrid forward (MEAN at
+    layer 1), not the all-LSTM one; the layer-0 cell is the initial one."""
+    out = str(tmp_path / "hybrid")
+    argv = ["--dataSet", "powerlaw:300:1200", "--pipeline", "cached",
+            "--agg_func", "LSTM", "--lstm_hybrid", "--table_cap", "8",
+            "--epochs", "2", "--b_sz", "50", "--hidden", "8",
+            "--device", "cpu", "--export", out, "--seed", "3", "--quiet"]
+    trainer, best = cli.run(argv)
+    assert type(trainer).__name__ == "CachedTrainer"
+    params, mcfg, _, meta = infer.load_bundle(out)
+    assert meta["lstm_hybrid"] is True and mcfg.agg_func == "LSTM"
+    gen = torch.Generator().manual_seed(3)
+    init = graphsage.init_graphsage(gen, mcfg)
+    for k, v in init["agg"][0].items():
+        np.testing.assert_array_equal(params["sage"]["agg"][0][k], v.numpy())
+    pad = trainer.ds.graph.to_padded()
+    sess = infer.InferenceSession.from_bundle(out, trainer.ds.features, pad,
+                                              device="cpu")
+    assert sess.lstm_hybrid
+    hybrid = infer.full_graph_embeddings(params["sage"], mcfg,
+                                         trainer.ds.features, pad,
+                                         lstm_hybrid=True, device="cpu")
+    np.testing.assert_array_equal(sess.embeddings(), hybrid)
+    all_lstm = infer.full_graph_embeddings(params["sage"], mcfg,
+                                           trainer.ds.features, pad,
+                                           device="cpu")
+    assert not np.allclose(all_lstm, hybrid)
 
 
 def test_cli_cached_pipeline_trains_exports_and_serves(tmp_path,
