@@ -70,8 +70,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    row and the scatter-add gradient against autograd through the plain
    version.  gather_max at the MAX step's two layer shapes (exact), and
    its tie-splitting backward (agg.max_aggregate_backward: the gather_rows
-   tie gather, the tie test, index_add_) against autograd through the plain
-   version, as a row of the whole composition; gather_rows at the LSTM
+   tie gather, the tie test, the scatter) against autograd through the
+   plain version, as a row of the whole composition; gather_rows at the LSTM
    step's layer-1 slot gather.
 6. End to end through the entry points, on powerlaw:2000:10000: the CLI
    trains plus_unsup for one epoch on the card and exports a bundle
@@ -121,15 +121,51 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    gather+mean at the refresh's [100000, 10]); its row gather (45,056 x 11
    ids over [100000, 128], equal to index_select bit for bit) is
    gather_rows' kernel row at that shape.
+9. bfloat16 training at full width (float32 master params, the feature
+   table and the leaf cache in bfloat16; the table_cap-32 adjacency of
+   phase 7; weights from a torch.Generator seeded 824, the sampler's seeded
+   825), on the JAX bench's bfloat16 rows:
+   (e) cached sup MEAN, batches of 65536 (the headline row,
+       powerlaw100k_b65536_cached_bfloat16): one refresh, then 20 steps of
+       RandomState(0).randint(0, N, (20, 65536)) through
+       cached.cached_epoch_reuse (the full-table branch);
+   (h) cached sup MAX, batches of 32768, 10 steps; (i) the cached-LSTM
+       hybrid, batches of 32768, 5 steps (fewer than (e), for time);
+   (f) the dense pipeline, sup MEAN, batches of 4096: 20 steps of
+       train.dense.make_dense_sup_epoch;
+   (g) compact plus_unsup MEAN through Trainer, 50 steps over the
+       1,000-node split, as phase 4 runs it in float32; (j) compact sup
+       MAX gcn the same way (its layer-2 tie backward in bfloat16).
+   For each: launch counts set to 0, the main path, counts read and held
+   equal to those predicted from the code (in bfloat16 every gradient of
+   a row gather is one scatter_rows launch: bf16_scatters, and one a step
+   on the cached full-table branch); the refresh and every step
+   again through the plain versions on the recorded draws, in lockstep
+   from the kernel run's params (bfloat16 tolerances below);
+   refresh_ms, ms_per_step (median, min, max), edges_per_batch over the
+   step time as edges/s, the epoch's idle share (torch.profiler).  For (e)
+   and (f) the device time of the float32 upcast of the bfloat16 table and
+   of the float32 GEMM on it; for (e) the layer-1 gather's bfloat16
+   scatter backward (720,896 rows into [100000, 128]) against a float64
+   sum: the port's (scatter_rows, JAX's order), index_add_'s bfloat16
+   atomics and float32.  Kernel rows in bfloat16: gather_mean / gather_max
+   at the refresh shape, gather_rows and scatter_rows at the three
+   full-table gathers and their backward, gather_mean at the dense and
+   compact layers with their gradient and a scatter_rows row at its
+   shape, pair_scores at (g)'s step, gather_max and its backward
+   composition at (j)'s layers.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
 row gather exact;
 bfloat16 pair scores within 2 ulps plus 1e-5 (SCORES_BF16_ATOL).
-Gradients: float32 rtol=atol=1e-5 (index_add_ adds with atomics, in no
-fixed order).  Training, kernels against plain versions in lockstep: step
-losses rtol LOSS_RTOL, params after each step atol PARAM_ATOL (see those
-constants).
+Gradients: float32 rtol=atol=1e-5 (float32 scatters are index_add_,
+atomics in no fixed order); bfloat16 scatter-adds keep JAX's order
+(ops/scatter.py), so a bfloat16 gradient on the card equals the same one
+on the CPU bit for bit.  Training, kernels against plain versions in lockstep:
+float32 step losses rtol LOSS_RTOL, params after each step atol PARAM_ATOL;
+bfloat16 losses rtol BF16_LOSS_RTOL, each step's update within
+BF16_UPDATE_RTOL of its largest element (see those constants).
 
 The last lines are a JSON object of per-kernel results, the card's name and
 power limit from nvidia-smi, and the result line
@@ -158,15 +194,16 @@ from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
 from graphsage_torch.microbench import (F32_OPS_PER_S, HBM_BYTES_PER_S,
-                                        cuda_ms, times)
+                                        cuda_ms, device_ms, times)
 from graphsage_torch.models import (GraphSageConfig, graphsage,
                                     init_classifier, init_graphsage, lstm_agg)
 from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
-from graphsage_torch.ops import build, gather, sddmm
+from graphsage_torch.ops import build, gather, scatter, sddmm
 from graphsage_torch.sampler.compact import _bucket
+from graphsage_torch.sampler.device import HopSampler
 from graphsage_torch.train import (CachedTrainer, Trainer, TrainConfig,
-                                   cached, micro_f1)
+                                   cached, dense, micro_f1)
 from graphsage_torch.train.optim import tree_leaves
 from graphsage_torch.train.trainer import _leaf_params
 
@@ -177,10 +214,14 @@ CONFIGS = (("MEAN", "float32"), ("MEAN", "bfloat16"), ("MAX", "bfloat16"),
 SOURCE = "graphsage_torch/csrc/aggregate.cu"
 SCORE_SOURCE = "graphsage_torch/csrc/sddmm.cu"
 GATHER_SOURCE = "graphsage_torch/csrc/gather.cu"
+SCATTER_SOURCE = "graphsage_torch/csrc/scatter.cu"
+# scatter_rows: the XLA scatter of the Pallas aggregates' VJP
+# (_pallas_mean_bwd), which jnp.take's VJP shares
 REPLACES = {"gather_mean": "graphsage_tpu/ops/pallas_aggregate.py:60",
             "gather_max": "graphsage_tpu/ops/pallas_aggregate.py:76",
             "pair_scores": "graphsage_tpu/ops/sddmm.py:156",
-            "gather_rows": "tools/pallas_microbench.py:87"}
+            "gather_rows": "tools/pallas_microbench.py:87",
+            "scatter_rows": "graphsage_tpu/ops/pallas_aggregate.py:147"}
 TRAIN_NODES, B_SZ, LR, FANOUT, SEED = 1000, 20, 0.7, 10, 824
 # kernels against plain versions, step by step from the same params (see
 # train_method): the pair-score kernel sums in another order than
@@ -191,6 +232,12 @@ LOSS_RTOL, PARAM_ATOL = 1e-4, 1e-5
 # ~1e-5 apart at H=128) and round once; near 0, where the sum cancels,
 # that difference is many bf16 ulps, so 2 ulps plus this absolute term
 SCORES_BF16_ATOL = 1e-5
+# bfloat16 training, kernels against plain versions in lockstep: the plain
+# versions' autograd scatters bfloat16 contributions in other orders than
+# JAX's (index_add_'s atomics, or a sort and float32 sums), so a step's
+# update differs by bfloat16 roundings; the bars the CPU tests hold the
+# port's bfloat16 step to against the JAX package's
+BF16_LOSS_RTOL, BF16_UPDATE_RTOL = 1e-2, 2e-2
 
 
 def log(*args) -> None:
@@ -241,6 +288,11 @@ def patched(module, **attrs):
     finally:
         for name, value in saved.items():
             setattr(module, name, value)
+
+
+def plain_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_rows' plain version: indexing, differentiated by autograd."""
+    return table[idx.long()]
 
 
 @contextlib.contextmanager
@@ -388,7 +440,8 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
     log(f"  profile: device busy {busy:.6f} ms of {what} "
         f"{wall_ms:.6f} (idle share {1 - busy / wall_ms:.4f}); by kernel:")
     ours = ("gather_reduce_kernel", "pair_scores_kernel",
-            "gather_rows_kernel")
+            "gather_rows_kernel", "scatter_keys_kernel", "row_starts_kernel",
+            "scatter_rows_kernel", "scatter_long_kernel")
     for rank, (t, key, count) in enumerate(sorted(rows, reverse=True)):
         if rank < top or any(name in key for name in ours):
             log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
@@ -399,7 +452,7 @@ def serving_launches(cfg: GraphSageConfig, lstm_hybrid: bool) -> dict:
     gather_mean / gather_max a MEAN / MAX layer, and a gather_rows a block
     of an LSTM layer (infer.card_block at the layer's input width)."""
     want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0}
+            "gather_rows": 0, "scatter_rows": 0}
     itemsize = graphsage.compute_dtype(cfg).itemsize
     for layer in range(cfg.num_layers):
         agg_func = "MEAN" if lstm_hybrid and layer == 0 else cfg.agg_func
@@ -530,20 +583,46 @@ def plain_training():
     run): autograd differentiates them (max_aggregate_plain's amax splits
     ties equally; the LSTM's slot gather is index_select)."""
     with patched(graphsage, mean_aggregate=agg.mean_aggregate_plain,
-                 max_aggregate=agg.max_aggregate_plain), \
+                 max_aggregate=agg.max_aggregate_plain,
+                 take_rows=plain_take), \
+            patched(scatter, take_rows=plain_take), \
             patched(lstm_agg, gather_rows=gather.gather_rows_plain), \
             patched(sddmm, pair_scores=sddmm.dense_pair_scores):
         yield
 
 
 def make_trainer(ds, method: str, dev: torch.device, agg_func: str = "MEAN",
-                 gcn: bool = False) -> Trainer:
+                 gcn: bool = False, dtype: str = "float32") -> Trainer:
     cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
-                          agg_func=agg_func, gcn=gcn)
+                          agg_func=agg_func, gcn=gcn, compute_dtype=dtype)
     tcfg = TrainConfig(learn_method=method, unsup_loss="normal", epochs=1,
                        b_sz=B_SZ, lr=LR, fanout=FANOUT, seed=SEED,
                        verbose=False)
     return Trainer(ds, cfg, tcfg, device=dev)
+
+
+def bf16_scatters(cfg: GraphSageConfig, n: int, u0: int,
+                  frontier_rows: list[int]) -> int:
+    """scatter_rows launches of one bfloat16 training step through
+    graphsage_apply_gathered (the compact and dense pipelines; float32
+    scatters are index_add_): a layer whose input carries a gradient
+    scatters its aggregate's backward once and, unless gcn, its self-row
+    gather's once.  Layer 1 reads the constant feature table [n, FEATS]
+    through u0 gathered rows; its input carries a gradient only where it is
+    transformed first (the whole table, or the MEAN pretransform of the
+    gathered rows, by the models' own rules); every later layer's does."""
+    if cfg.compute_dtype != "bfloat16":
+        return 0
+    per_layer = 1 if cfg.gcn else 2
+    table = (cfg.agg_func == "MEAN" and cfg.mean_pretransform != "never"
+             and cfg.impl != "pallas"
+             and (cfg.mean_pretransform == "always" or n <= 2 * u0))
+    first = table or graphsage._use_pretransform(
+        cfg, torch.empty(u0, FEATS, device="meta"),
+        graphsage.Frontier(idx=torch.empty(frontier_rows[0], 1,
+                                           device="meta"),
+                           mask=None, self_idx=None))
+    return per_layer * (int(first) + cfg.num_layers - 1)
 
 
 def compact_launches(cfg: GraphSageConfig, method: str, step_args: list,
@@ -555,17 +634,19 @@ def compact_launches(cfg: GraphSageConfig, method: str, step_args: list,
     sddmm.dense_block_pays picks the score block for the step's pair batch;
     and for MAX one tie-gather gather_rows a differentiated layer a step
     (every layer above the first: the first aggregates constant feature
-    rows)."""
+    rows); in bfloat16, the backward's scatter_rows by bf16_scatters."""
     steps = len(step_args)
     want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0}
+            "gather_rows": 0, "scatter_rows": 0}
     kernel = {"MEAN": "gather_mean", "MAX": "gather_max",
               "LSTM": "gather_rows"}[cfg.agg_func]
     want[kernel] += cfg.num_layers * (steps + evals)
     if cfg.agg_func == "MAX":
         want["gather_rows"] += (cfg.num_layers - 1) * steps
-    if method != "sup":
-        for pb, cb, _, _ in step_args:
+    for pb, cb, _, _ in step_args:
+        want["scatter_rows"] += bf16_scatters(
+            cfg, NODES, len(cb.x0_ids), [f.idx.shape[0] for f in cb.frontiers])
+        if method != "sup":
             want["pair_scores"] += sddmm.dense_block_pays(
                 pb.target_rows.shape[0], cb.out_rows,
                 pb.pos_q.size + pb.neg_q.size, cfg.out_size)
@@ -606,12 +687,50 @@ def fit_timed(tr: Trainer, before=None, after=None,
     return step_ms, fit_s
 
 
+def snapshot(params) -> list[torch.Tensor]:
+    return [p.detach().clone() for p in tree_leaves(params)]
+
+
 def param_snapshot(tr: Trainer) -> list[torch.Tensor]:
-    return [p.detach().clone() for p in tree_leaves(tr.params)]
+    return snapshot(tr.params)
 
 
 def max_abs_diff(a: list[torch.Tensor], b: list[torch.Tensor]) -> float:
     return max(float((x.detach() - y).abs().max()) for x, y in zip(a, b))
+
+
+def update_error(got: list, want: list, before: list) -> float:
+    """How far the update ``got - before`` lies from ``want - before``,
+    relative to the largest element of the latter, the worst leaf."""
+    worst = 0.0
+    for g, w, b in zip(got, want, before):
+        scale = float((w - b).abs().max())
+        err = float((g.detach() - w).abs().max())
+        worst = max(worst, err / scale if scale else
+                    (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def assert_lockstep(tag: str, dtype: str, loss_rel: list, abs_errs: list,
+                    upd_errs: list) -> None:
+    """float32: step losses within LOSS_RTOL and params after each step
+    within PARAM_ATOL; bfloat16: losses within BF16_LOSS_RTOL and each
+    step's update within BF16_UPDATE_RTOL of its largest element."""
+    bf16 = dtype == "bfloat16"
+    log(f"{tag} lockstep, kernels vs plain versions over {len(loss_rel)} "
+        f"steps: step loss max relative difference {max(loss_rel):.3e} "
+        f"(step {int(np.argmax(loss_rel)) + 1}; tolerance "
+        f"{BF16_LOSS_RTOL if bf16 else LOSS_RTOL}); params after each step "
+        f"max abs difference {max(abs_errs):.3e}"
+        f"{'' if bf16 else f' (tolerance {PARAM_ATOL})'}; update max "
+        f"difference {max(upd_errs):.3e} of its largest element"
+        f"{f' (tolerance {BF16_UPDATE_RTOL})' if bf16 else ''}")
+    if bf16:
+        assert max(loss_rel) <= BF16_LOSS_RTOL, loss_rel
+        assert max(upd_errs) <= BF16_UPDATE_RTOL, upd_errs
+    else:
+        assert max(loss_rel) <= LOSS_RTOL, loss_rel
+        assert max(abs_errs) <= PARAM_ATOL, abs_errs
 
 
 def capture_step_inputs(tr: Trainer) -> dict:
@@ -647,7 +766,8 @@ def capture_step_inputs(tr: Trainer) -> dict:
 
 
 def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
-                 gcn: bool = False, free_running: bool = True) -> dict:
+                 gcn: bool = False, free_running: bool = True,
+                 dtype: str = "float32") -> dict:
     """One epoch of `method` through the kernels (counted), held step by
     step against the plain versions; returns what the kernel rows need.
 
@@ -659,8 +779,9 @@ def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
     difference (index_add_'s atomics, another order of the score sums) to
     an O(1) one within 50 steps."""
     tag = (f"[train {method}{'' if agg_func == 'MEAN' else ' ' + agg_func}"
-           f"{' gcn' if gcn else ''}]")
-    tr = make_trainer(ds, method, dev, agg_func, gcn)
+           f"{' gcn' if gcn else ''}{' bf16' if dtype == 'bfloat16' else ''}"
+           f"]")
+    tr = make_trainer(ds, method, dev, agg_func, gcn, dtype)
     snaps, step_args = [], []
     agg.reset_launches()
     step_ms, fit_s = fit_timed(tr, before=lambda i: snaps.append(
@@ -677,8 +798,8 @@ def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
         f"the code {want}")
     assert launches == want, (launches, want)
 
-    ref = make_trainer(ds, method, dev, agg_func, gcn)
-    step_errs = []
+    ref = make_trainer(ds, method, dev, agg_func, gcn, dtype)
+    step_errs, upd_errs = [], []
 
     def load(i):
         with torch.no_grad():
@@ -686,23 +807,19 @@ def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
                 p.copy_(q)
 
     agg.reset_launches()
+    def compare(i):
+        got = tree_leaves(ref.params)
+        step_errs.append(max_abs_diff(got, snaps[i + 1]))
+        upd_errs.append(update_error(got, snaps[i + 1], snaps[i]))
+
     with plain_training():
-        plain_ms, plain_s = fit_timed(
-            ref, before=load, after=lambda i: step_errs.append(
-                max_abs_diff(tree_leaves(ref.params), snaps[i + 1])))
+        plain_ms, plain_s = fit_timed(ref, before=load, after=compare)
     assert sum(agg.LAUNCHES.values()) == 0, agg.LAUNCHES
     losses = np.asarray(tr.step_losses)
     ref_losses = np.asarray(ref.step_losses)
     assert np.isfinite(losses).all() and losses.shape == (steps,)
     rel = np.abs(losses - ref_losses) / np.abs(ref_losses)
-    log(f"{tag} lockstep, kernels vs plain versions: step loss max "
-        f"relative difference {rel.max():.3e} (step "
-        f"{int(rel.argmax()) + 1}; tolerance {LOSS_RTOL}); params after "
-        f"each step max abs difference {max(step_errs):.3e} (step "
-        f"{int(np.argmax(step_errs)) + 1}; tolerance {PARAM_ATOL}); final "
-        f"params {step_errs[-1]:.3e}")
-    np.testing.assert_allclose(losses, ref_losses, rtol=LOSS_RTOL)
-    assert max(step_errs) <= PARAM_ATOL, step_errs
+    assert_lockstep(tag, dtype, list(rel), step_errs, upd_errs)
     del ref
 
     if free_running:
@@ -756,7 +873,8 @@ def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
     got = sddmm.pair_scores_kernel(emb, target_rows)
     torch.cuda.synchronize()
     err = check_close(f"pair_scores {label}", got,
-                      sddmm.dense_pair_scores(emb, target_rows))
+                      sddmm.dense_pair_scores(emb, target_rows),
+                      bf16_atol=SCORES_BF16_ATOL)
     e16 = emb.bfloat16()
     err16 = check_close(f"pair_scores {label} bf16",
                         sddmm.pair_scores_kernel(e16, target_rows),
@@ -769,8 +887,11 @@ def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
         leaf = emb.detach().clone().requires_grad_(True)
         (fn(leaf, target_rows) * g).sum().backward()
         grads.append(leaf.grad)
+    # bfloat16: both compute in float32 and round once; near 0 a float32
+    # difference of the cancelling sums is many bf16 ulps
     grad_err = check_close(f"pair_scores {label} gradient", grads[0],
-                           grads[1])
+                           grads[1], bf16_atol=1e-5 * float(
+                               grads[1].float().abs().max()))
 
     b, (u, h) = target_rows.shape[0], emb.shape
     es = emb.element_size()
@@ -824,52 +945,148 @@ def score_rows(step_inputs: dict, launches: int, dev: torch.device) -> list:
     return rows
 
 
-def mean_step_rows(step_inputs: dict, launches: int) -> list:
+def on_cpu(fn, *args):
+    """fn on CPU copies of the tensors in args (the plain versions run)."""
+    return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in args))
+
+
+def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
+                launches: int) -> dict:
+    """scatter_rows against its plain version on the card and on the CPU
+    (bit for bit: both add in JAX's order), and its kernel row: the bound
+    reads the nonzero contributions, the ids and writes the output once;
+    the library call is index_add_ of the same rows (bfloat16 atomics, in
+    another order), the plain version the rank-by-rank adds on the card."""
+    g, idx = g.contiguous(), idx.reshape(-1).int().contiguous()
+    got = scatter.scatter_rows_kernel(g, idx, m)
+    torch.cuda.synchronize()
+    assert torch.equal(got, scatter.scatter_rows_plain(g, idx, m)), label
+    assert torch.equal(got.cpu(), on_cpu(scatter.scatter_rows_plain, g, idx,
+                                         m)), label
+    nonzero = (g != 0).any(dim=1)
+    chain = int(torch.bincount(idx[nonzero].long(), minlength=m).max())
+    j, d = g.shape
+    nbytes = int(nonzero.sum()) * d * 2 + j * 4 + m * d * 2
+    long_idx = idx.long()
+    row = {
+        "name": f"scatter_rows ({label})",
+        "route": "cuda",
+        "source": SCATTER_SOURCE,
+        "replaces": REPLACES["scatter_rows"],
+        "launches": launches,
+        "max_abs_err": 0.0,
+        **times(lambda: scatter.scatter_rows_kernel(g, idx, m), None,
+                library=lambda: torch.zeros(m, d, dtype=g.dtype,
+                                            device=g.device).index_add_(
+                                                0, long_idx, g), reps=20),
+        "plain_ms": cuda_ms(lambda: scatter.scatter_rows_plain(g, idx, m),
+                            reps=2, warmup=1),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+    log(f"kernel {row['name']}: g {tuple(g.shape)} {g.dtype} into [{m}, "
+        f"{d}], {int(nonzero.sum())} nonzero rows, the longest row "
+        f"{chain} adds, {nbytes} bytes; the whole call (keys, torch.sort, "
+        f"row starts, ordered sums) {timing_note(row)} [index_add_, "
+        f"bfloat16 atomics]; equal to the plain version on the card and on "
+        f"the CPU")
+    return row
+
+
+def bf16_backward_check(name: str, fn, embed: torch.Tensor, args: tuple,
+                        g: torch.Tensor) -> None:
+    """The bfloat16 gradient of sum(fn(embed, *args) * g) through the
+    kernels equals the same from CPU copies (the plain versions) bit for
+    bit."""
+    grads = []
+    for dev in (embed.device, torch.device("cpu")):
+        leaf = embed.detach().to(dev).clone().requires_grad_(True)
+        (fn(leaf, *(a.to(dev) for a in args)).float()
+         * g.to(dev).float()).sum().backward()
+        grads.append(leaf.grad)
+    if not torch.equal(grads[0].cpu(), grads[1]):
+        raise AssertionError(f"{name}: the card's bf16 gradient differs "
+                             f"from the CPU's")
+
+
+def mean_step_rows(step_inputs: dict, launches: int,
+                   what: str = "training",
+                   scatter_launches: int | None = None) -> list:
     """gather_mean at the training step's two layer shapes: the kernel row,
     and the scatter-add gradient against autograd through the plain
-    version."""
+    version (float32) or against the same gradient on the CPU (bfloat16,
+    bit for bit), with a scatter_rows row at the backward's shape when
+    ``scatter_launches`` is given."""
     rows = []
     for layer, (embed, idx, mask) in enumerate(step_inputs["gather_mean"],
                                                start=1):
-        label = f"f32 training layer {layer}"
+        bf16 = embed.dtype == torch.bfloat16
+        label = f"{'bf16' if bf16 else 'f32'} {what} layer {layer}"
         rows.append(kernel_row("gather_mean", label, embed, idx, mask,
                                launches))
         g = torch.randn(idx.shape[0], embed.shape[1],
                         generator=torch.Generator().manual_seed(layer)
-                        ).to(embed.device)
-        grads = []
-        for fn in (agg.mean_aggregate, agg.mean_aggregate_plain):
-            leaf = embed.detach().clone().requires_grad_(True)
-            (fn(leaf, idx, mask) * g).sum().backward()
-            grads.append(leaf.grad)
-        err = check_close(f"gather_mean {label} gradient", grads[0],
-                          grads[1])
-        bwd_ms = cuda_ms(lambda: agg.mean_aggregate_backward(
-            g, idx, mask, embed.shape, embed.dtype), reps=20)
-        log(f"  gather_mean {label} backward (index_add_ scatter-add): "
-            f"gradient max_abs_err {err} against autograd through the "
-            f"plain version; {bwd_ms:.6f} ms")
+                        ).to(embed.device, embed.dtype)
+        if bf16:
+            bf16_backward_check(f"gather_mean {label}", agg.mean_aggregate,
+                                embed, (idx, mask), g)
+            err = 0.0
+        else:
+            grads = []
+            for fn in (agg.mean_aggregate, agg.mean_aggregate_plain):
+                leaf = embed.detach().clone().requires_grad_(True)
+                (fn(leaf, idx, mask).float() * g.float()).sum().backward()
+                grads.append(leaf.grad)
+            err = check_close(f"gather_mean {label} gradient", grads[0],
+                              grads[1])
+        bwd = lambda: agg.mean_aggregate_backward(g, idx, mask, embed.shape,
+                                                  embed.dtype)
+        leaf = embed.detach().clone().requires_grad_(True)
+        plain_out = agg.mean_aggregate_plain(leaf, idx, mask)
+        plain_bwd = lambda: torch.autograd.grad(plain_out, leaf, g,
+                                                retain_graph=True)
+        against = ("equal to the CPU's bit for bit" if bf16 else
+                   "max_abs_err against autograd through the plain version")
+        log(f"  gather_mean {label} backward (scatter-add into "
+            f"{list(embed.shape)}): {against} {err}; "
+            f"{cuda_ms(bwd, reps=20):.6f} ms, device {device_ms(bwd):.6f} "
+            f"ms; plain (autograd) device {device_ms(plain_bwd):.6f} ms")
+        if bf16 and scatter_launches is not None:
+            w = (mask / mask.sum(1, keepdim=True).clamp_min(1.0)).to(g.dtype)
+            rows.append(scatter_row(
+                f"{label} backward, {idx.numel()} rows into "
+                f"{list(embed.shape)}",
+                (g[:, None, :] * w[:, :, None]).reshape(-1, embed.shape[1]),
+                idx, embed.shape[0], scatter_launches))
     return rows
 
 
 def max_backward_row(label: str, embed: torch.Tensor, idx: torch.Tensor,
                      mask: torch.Tensor, launches: int) -> dict:
     """gather_max's backward (agg.max_aggregate_backward: the tie gather
-    through the gather_rows kernel, the tie test, the division and
-    index_add_) against autograd through the plain version, and its row:
+    through the gather_rows kernel, the tie test, the division and the
+    scatter) against autograd through the plain version (bfloat16: against
+    the same composition on the CPU, bit for bit), and its row:
     the composition's time beside its byte bound and the plain backward's
     time (no one PyTorch call computes it: library_ms is null)."""
     g = torch.randn(idx.shape[0], embed.shape[1],
                     generator=torch.Generator().manual_seed(11)
-                    ).to(embed.device)
+                    ).to(embed.device, embed.dtype)
     with torch.no_grad():
         out = agg.max_aggregate(embed, idx, mask)
     got = agg.max_aggregate_backward(g, embed, idx, mask, out)
     leaf = embed.detach().clone().requires_grad_(True)
     plain_out = agg.max_aggregate_plain(leaf, idx, mask)
-    want, = torch.autograd.grad(plain_out, leaf, g, retain_graph=True)
     torch.cuda.synchronize()
-    err = check_close(f"gather_max backward {label}", got, want)
+    if embed.dtype == torch.bfloat16:
+        # JAX's order of the bfloat16 adds: the CPU's result, bit for bit
+        want = on_cpu(agg.max_aggregate_backward, g, embed, idx, mask, out)
+        assert torch.equal(got.cpu(), want), label
+        err = 0.0
+    else:
+        want, = torch.autograd.grad(plain_out, leaf, g, retain_graph=True)
+        err = check_close(f"gather_max backward {label}", got, want)
 
     (u, s), (m, d) = idx.shape, embed.shape
     es = embed.element_size()
@@ -894,7 +1111,7 @@ def max_backward_row(label: str, embed: torch.Tensor, idx: torch.Tensor,
     }
     log(f"kernel {row['name']}: embed {tuple(embed.shape)} {embed.dtype}, "
         f"idx {tuple(idx.shape)}, {rows_read} rows read, {nbytes} bytes; "
-        f"the whole composition (gather_rows, tie test, index_add_ into "
+        f"the whole composition (gather_rows, tie test, scatter into "
         f"[{m}, {d}]) {timing_note(row)} [plain: autograd through "
         f"max_aggregate_plain's amax] max_abs_err {err}")
     return row
@@ -908,7 +1125,8 @@ def max_step_rows(step_inputs: dict, launches: dict) -> list:
     rows = []
     for layer, (embed, idx, mask) in enumerate(step_inputs["gather_max"],
                                                start=1):
-        label = f"f32 compact layer {layer}"
+        dtype = "bf16" if embed.dtype == torch.bfloat16 else "f32"
+        label = f"{dtype} compact layer {layer}"
         rows.append(kernel_row("gather_max", label, embed, idx, mask,
                                launches["gather_max"]))
         rows.append(max_backward_row(
@@ -982,7 +1200,8 @@ def predicted_launches(tr: CachedTrainer, records: list,
     at the step's m1; one pair_scores per unsupervised step whose score
     block sddmm.dense_block_pays picks; per evaluation embedding (val, and
     test when val F1 improved) one refresh and the layer-1 gathers at
-    m1 = bucket(nodes) x (K + 1)."""
+    m1 = bucket(nodes) x (K + 1); in bfloat16 one scatter_rows a step on
+    the full-table branch (the other gathers read constant tables)."""
     k = tr.tcfg.fanout
 
     def rows_at(m1):
@@ -991,10 +1210,13 @@ def predicted_launches(tr: CachedTrainer, records: list,
     every = tr.tcfg.refresh_every
     refreshes = sum(1 for ep in range(epochs) if ep % every == 0)
     want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0}
+            "gather_rows": 0, "scatter_rows": 0}
+    bf16 = tr.mcfg.compute_dtype == "bfloat16"
     for rec in records:
         batch, _, _, pairs = rec["args"]
         want["gather_rows"] += rows_at(batch.shape[0] * (k + 1))
+        full = rows_at(batch.shape[0] * (k + 1)) == 1
+        want["scatter_rows"] += int(bf16 and full)
         if pairs is not None:
             b, u = pairs["target_rows"].shape[0], batch.shape[0]
             n_pairs = pairs["pos_q"].numel() + pairs["neg_q"].numel()
@@ -1256,6 +1478,430 @@ def cached_rows(results: dict) -> list:
     return rows
 
 
+# ------------------------------------------------------------ bfloat16 training
+
+# (label, agg_func, b_sz, steps): the JAX bench's bfloat16 cached rows
+# (bench.py:278-289), sup on bench-style batches; (h) and (i) run fewer
+# steps than (e) to keep the run short
+BF16_CACHED = (("e", "MEAN", 65536, 20), ("h", "MAX", 32768, 10),
+               ("i", "LSTM", 32768, 5))
+DENSE_B, DENSE_STEPS = 4096, 20
+
+
+def bf16_config(agg_func: str = "MEAN") -> GraphSageConfig:
+    return GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
+                           agg_func=agg_func, compute_dtype="bfloat16")
+
+
+def bf16_params(cfg: GraphSageConfig, dev: torch.device) -> dict:
+    """float32 master params from a torch.Generator seeded with SEED."""
+    gen = torch.Generator().manual_seed(SEED)
+    return _leaf_params({"sage": init_graphsage(gen, cfg),
+                         "clf": init_classifier(gen, HIDDEN, CLASSES)}, dev)
+
+
+def bench_batches(b: int, steps: int, labels: torch.Tensor):
+    """The JAX bench's batch stack (bench.py _setup):
+    RandomState(0).randint(0, N, (steps, b)), and its labels."""
+    ids = np.random.RandomState(0).randint(0, NODES, (steps, b))
+    batches = torch.from_numpy(ids.astype(np.int32)).to(labels.device)
+    return batches, labels[batches.long()]
+
+
+class SnapshotHop(RecordingHop):
+    """A RecordingHop that also snapshots ``params`` at the first hop of
+    every step (a step samples before it updates anything)."""
+
+    def __init__(self, hop, params, hops_a_step: int):
+        super().__init__(hop)
+        self.params = params
+        self.every = hops_a_step
+        self.snaps = []
+
+    def __call__(self, nodes, fanout):
+        if len(self.draws) % self.every == 0:
+            self.snaps.append(snapshot(self.params))
+        return super().__call__(nodes, fanout)
+
+
+def replay_lockstep(tag: str, step, params: dict, records: list, plain,
+                    args_of) -> None:
+    """Each recorded step again through the plain versions, from the kernel
+    run's params before that step and on its draws (``args_of(rec)``: the
+    step's arguments after the params); bfloat16 lockstep tolerances."""
+    ref = _leaf_params(params, params["clf"]["weight"].device)
+    loss_rel, abs_errs, upd_errs = [], [], []
+    agg.reset_launches()
+    with plain():
+        for rec in records:
+            with torch.no_grad():
+                for p, q in zip(tree_leaves(ref), rec["before"]):
+                    p.copy_(q)
+            loss = float(step(ref, *args_of(rec)))
+            loss_rel.append(abs(loss - float(rec["loss"]))
+                            / abs(float(rec["loss"])))
+            got = tree_leaves(ref)
+            abs_errs.append(max_abs_diff(got, rec["after"]))
+            upd_errs.append(update_error(got, rec["after"], rec["before"]))
+    assert sum(agg.LAUNCHES.values()) == 0, agg.LAUNCHES
+    assert_lockstep(tag, "bfloat16", loss_rel, abs_errs, upd_errs)
+
+
+def timed_steps(tag: str, run_step, steps: int, edges: int) -> float:
+    """ms_per_step over TIMED_STEPS synchronised steps (after two warm
+    ones), with min, max and edges/s; returns the median."""
+    times = []
+    for i in range(TIMED_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_step(i % steps)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times = times[2:]
+    ms = statistics.median(times)
+    log(f"{tag} ms_per_step {ms:.6f} (median of {len(times)} steps; min "
+        f"{min(times):.6f}, max {max(times):.6f}); edges_per_batch {edges}, "
+        f"{edges / ms * 1e3:.1f} edges/s")
+    return ms
+
+
+def epoch_profile(tag: str, epoch, steps: int) -> float:
+    """A warm epoch's wall time (host clock, synchronised) and the device
+    profile of another; returns the wall ms."""
+    epoch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epoch()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    log(f"{tag} one epoch of {steps} steps {wall:.6f} ms ({wall / steps:.6f} "
+        f"ms a step, no synchronisation inside)")
+    profile_device(epoch, wall, what="epoch ms", top=12)
+    return wall
+
+
+def upcast_costs(tag: str, table: torch.Tensor, w: torch.Tensor) -> None:
+    """Device time of the float32 upcast of a bfloat16 table and of the
+    float32 GEMM the port takes on it (TF32 off), beside a bfloat16
+    tensor-core GEMM of the same operands, which the port does not run."""
+    up = device_ms(lambda: table.float())
+    t32, w32 = table.float(), w.float()
+    gemm = device_ms(lambda: torch.matmul(t32, w32.T))
+    gemm16 = device_ms(lambda: torch.matmul(table, w.T))
+    ops = 2 * table.shape[0] * table.shape[1] * w.shape[0]
+    bound = ops / F32_OPS_PER_S * 1e3
+    log(f"{tag} upcast of the bf16 table {list(table.shape)} to float32: "
+        f"{up:.6f} ms device ({table.numel() * 6 / up / 1e9:.3f} TB/s); "
+        f"float32 GEMM x {list(w.shape)}^T {gemm:.6f} ms device "
+        f"({ops / gemm / 1e9:.1f} TFLOP/s, bound {bound:.6f} ms); a bf16 "
+        f"GEMM of the same operands (not run by the port) {gemm16:.6f} ms "
+        f"device")
+
+
+def scatter_deviation(tag: str, g: torch.Tensor, idx: torch.Tensor,
+                      m: int) -> None:
+    """The layer-1 gather's bf16 backward, d_table = the scatter-add of g
+    [J, D] into [m, D], against the float64 sum of the same contributions:
+    the port's (scatter_rows, JAX's order; the CPU's plain version equals
+    it bit for bit, see scatter_row), index_add_'s bfloat16 atomics on the
+    card (not run by the port) and a float32 index_add_ on the card."""
+    exact = torch.zeros(m, g.shape[1], dtype=torch.float64,
+                        device=g.device).index_add_(0, idx.long(),
+                                                    g.double())
+    # contributions that are not all zero (masked slots, such as the
+    # sampler's padding ids, send zero rows)
+    counts = torch.bincount(idx[(g != 0).any(dim=1)].long(), minlength=m)
+    hub = int(counts.argmax())
+    scale = float(exact.abs().max())
+    hub_scale = float(exact[hub].abs().max())
+    zeros = torch.zeros(m, g.shape[1], dtype=g.dtype, device=g.device)
+    outs = {"card bf16 (scatter_rows, JAX's order)":
+            scatter.scatter_rows(g, idx, m),
+            "card bf16 (index_add_ atomics)":
+            zeros.index_add_(0, idx.long(), g),
+            "card float32": scatter.scatter_rows(g.float(), idx, m)}
+    busy = counts >= 256
+    for name, d in outs.items():
+        dev = (d.double() - exact).abs()
+        busy_dev = float(dev[busy].max()) if busy.any() else 0.0
+        log(f"{tag} bf16 scatter of {idx.shape[0]} rows into [{m}, "
+            f"{g.shape[1]}]: {name}: max abs deviation from the float64 sum "
+            f"{float(dev.max()):.6e} ({float(dev.max()) / scale:.3e} of the "
+            f"largest |sum|); hub row {hub} ({int(counts[hub])} nonzero "
+            f"contributions): {float(dev[hub].max()):.6e} "
+            f"({float(dev[hub].max()) / hub_scale:.3e} of its largest "
+            f"|sum|); {int(busy.sum())} rows with >= 256 nonzero "
+            f"contributions, "
+            f"their max deviation {busy_dev:.6e}")
+
+
+def bf16_cached(label: str, agg_func: str, b: int, steps: int, feats16,
+                tables, labels, dev: torch.device) -> dict:
+    """A bfloat16 cached configuration on the library path the JAX bench
+    times (refresh, then cached_epoch_reuse over bench batches): the
+    counted epoch, its predicted launches, the refresh and every step
+    against the plain versions on the recorded draws, refresh_ms,
+    ms_per_step, edges/s, the epoch's idle share, and one more step whose
+    layer-1 gather and its incoming gradient are kept for the kernel rows
+    and the scatter deviation."""
+    cfg = bf16_config(agg_func)
+    hybrid = agg_func == "LSTM"
+    tag = (f"[bf16 cached {label}: sup {agg_func}{' hybrid' if hybrid else ''}"
+           f" b_sz {b}]")
+    params = bf16_params(cfg, dev)
+    batches, batch_labels = bench_batches(b, steps, labels)
+    hop = RecordingHop(HopSampler(*tables, torch.Generator(
+        device=dev).manual_seed(SEED + 1)))
+    step = cached.CachedStep(cfg, fanout=FANOUT, lr=LR)
+    records = []
+
+    def recording_step(params_, feats, cache_feats, cache_count, hop_,
+                       *args):
+        before, first = snapshot(params_), len(hop.draws)
+        loss = step(params_, feats, cache_feats, cache_count, hop_, *args)
+        records.append({"before": before, "after": snapshot(params_),
+                        "args": args, "draws": hop.draws[first:],
+                        "loss": loss})
+        return loss
+
+    # -------- the main path, counted
+    agg.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = cached.refresh_leaf_cache(hop, feats16, FANOUT, agg=agg_func)
+    refresh_draws = list(hop.draws)
+    losses = cached.cached_epoch_reuse(recording_step, params, feats16,
+                                       *cache, hop, batches, batch_labels)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(agg.LAUNCHES)
+    full = cached.layer1_full_table(NODES, FEATS, b * (FANOUT + 1), HIDDEN)
+    want = {"gather_mean": int(agg_func != "MAX"),
+            "gather_max": int(agg_func == "MAX"), "pair_scores": 0,
+            "gather_rows": steps * (1 if full else 2),
+            "scatter_rows": steps * int(full)}
+    log(f"{tag} main path: refresh_leaf_cache + cached_epoch_reuse, "
+        f"{steps} steps in {run_s:.3f} s; launches {launches}; predicted "
+        f"from the code {want}; loss curve "
+        + " ".join(f"{x:.6f}" for x in losses.tolist()))
+    assert launches == want, (launches, want)
+    assert cache[0].dtype == torch.bfloat16
+    assert losses.dtype == torch.float32 and torch.isfinite(losses).all()
+    assert all(p.dtype == torch.float32 for p in tree_leaves(params))
+
+    # -------- the refresh and every step against the plain versions
+    with plain_cached():
+        ref_f, ref_c = cached.refresh_leaf_cache(
+            ReplayHop(refresh_draws), feats16, FANOUT, agg=agg_func)
+    err = check_close(f"{tag} refresh vs plain", cache[0], ref_f,
+                      exact=agg_func == "MAX")
+    assert torch.equal(cache[1], ref_c)
+    log(f"{tag} refresh vs plain on the same samples: max abs error {err}")
+    replay_lockstep(tag, step, params, records, plain_cached,
+                    lambda rec: (feats16, *cache, ReplayHop(rec["draws"]),
+                                 *rec["args"]))
+    del records
+
+    # -------- refresh_ms, ms_per_step, the epoch's idle share
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cached.refresh_leaf_cache(hop, feats16, FANOUT, agg=agg_func)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    refresh_ms = statistics.median(times)
+    log(f"{tag} refresh_ms {refresh_ms:.6f} (median of 5; min "
+        f"{min(times):.6f}, max {max(times):.6f})")
+    edges = dense.edges_per_batch(b, 2, FANOUT)
+    ms = timed_steps(tag, lambda t: step(params, feats16, *cache, hop,
+                                         batches[t], batch_labels[t]),
+                     steps, edges)
+
+    def epoch():
+        c = cached.refresh_leaf_cache(hop, feats16, FANOUT, agg=agg_func)
+        return cached.cached_epoch_reuse(step, params, feats16, *c, hop,
+                                         batches, batch_labels)
+
+    wall = epoch_profile(tag, epoch, steps)
+
+    # -------- one more step, its layer-1 gather and incoming gradient kept
+    seen = []
+
+    def gather_rec(table, idx):
+        out = gather.gather_rows(table, idx)
+        if out.requires_grad:
+            out.register_hook(lambda g: seen.append(
+                (table.detach(), idx, g.detach())))
+        return out
+
+    with patched(cached, gather_rows=gather_rec):
+        step(params, feats16, *cache, hop, batches[0], batch_labels[0])
+    torch.cuda.synchronize()
+    table, idx, g = seen[0]
+    assert g.dtype == torch.bfloat16 and idx.shape[0] == b * (FANOUT + 1)
+    return {"label": label, "agg": agg_func, "launches": launches,
+            "cache": cache, "refresh_draws": refresh_draws, "params": params,
+            "gather": (table, idx, g),
+            "summary": {"refresh_ms": refresh_ms, "ms_per_step": ms,
+                        "edges_per_s": edges / ms * 1e3, "epoch_ms": wall,
+                        "steps": steps}}
+
+
+def bf16_dense(feats16, tables, labels, dev: torch.device) -> dict:
+    """(f) the dense pipeline, sup MEAN bfloat16, batches of DENSE_B:
+    make_dense_sup_epoch counted over DENSE_STEPS bench batches, every step
+    against the plain versions on its recorded draws, ms_per_step, edges/s,
+    the epoch's idle share, and one more step's gather_mean inputs for the
+    kernel rows."""
+    cfg = bf16_config()
+    tag = f"[bf16 dense f: sup MEAN b_sz {DENSE_B}]"
+    params = bf16_params(cfg, dev)
+    batches, batch_labels = bench_batches(DENSE_B, DENSE_STEPS, labels)
+    hop = SnapshotHop(HopSampler(*tables, torch.Generator(
+        device=dev).manual_seed(SEED + 1)), params, cfg.num_layers)
+    epoch = dense.make_dense_sup_epoch(cfg, fanout=FANOUT, lr=LR)
+    agg.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = epoch(params, feats16, hop, batches, batch_labels)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(agg.LAUNCHES)
+    # one gather_mean a MEAN layer a step, whichever layer form
+    k = FANOUT + 1
+    want = {"gather_mean": cfg.num_layers * DENSE_STEPS, "gather_max": 0,
+            "pair_scores": 0, "gather_rows": 0,
+            "scatter_rows": DENSE_STEPS * bf16_scatters(
+                cfg, NODES, DENSE_B * k * k, [DENSE_B * k, DENSE_B])}
+    log(f"{tag} main path: make_dense_sup_epoch, {DENSE_STEPS} steps in "
+        f"{run_s:.3f} s; launches {launches}; predicted from the code "
+        f"{want}; loss curve " + " ".join(f"{x:.6f}" for x in
+                                          losses.tolist()))
+    assert launches == want, (launches, want)
+    assert losses.dtype == torch.float32 and torch.isfinite(losses).all()
+    snaps = hop.snaps + [snapshot(params)]
+    k = cfg.num_layers
+    records = [{"before": snaps[t], "after": snaps[t + 1],
+                "loss": losses[t], "draws": hop.draws[k * t:k * (t + 1)],
+                "args": (batches[t], batch_labels[t])}
+               for t in range(DENSE_STEPS)]
+    step = dense.make_dense_sup_step(cfg, fanout=FANOUT, lr=LR)
+    replay_lockstep(tag, step, params, records, plain_training,
+                    lambda rec: (feats16, ReplayHop(rec["draws"]),
+                                 *rec["args"]))
+    del records, snaps
+    hop = hop.hop
+    edges = dense.edges_per_batch(DENSE_B, 2, FANOUT)
+    ms = timed_steps(tag, lambda t: step(params, feats16, hop, batches[t],
+                                         batch_labels[t]),
+                     DENSE_STEPS, edges)
+    wall = epoch_profile(tag, lambda: epoch(params, feats16, hop, batches,
+                                            batch_labels), DENSE_STEPS)
+    seen = []
+
+    def mean_rec(embed, idx, mask):
+        seen.append((embed.detach(), idx, mask))
+        return agg.mean_aggregate(embed, idx, mask)
+
+    with patched(graphsage, mean_aggregate=mean_rec):
+        step(params, feats16, hop, batches[0], batch_labels[0])
+    torch.cuda.synchronize()
+    return {"launches": launches, "params": params, "inputs": seen,
+            "summary": {"ms_per_step": ms, "edges_per_s": edges / ms * 1e3,
+                        "epoch_ms": wall, "steps": DENSE_STEPS}}
+
+
+def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> list:
+    """Phase 9: bfloat16 training at full width, (e)-(i); returns the
+    bfloat16 kernel rows."""
+    log(f"bf16: torch.backends.cuda.matmul."
+        f"allow_bf16_reduced_precision_reduction is "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
+        f" (set False when graphsage_torch.models is imported)")
+    feats16 = torch.from_numpy(ds.features).to(dev, torch.bfloat16)
+    pad = ds.graph.to_padded_sampled(TABLE_CAP,
+                                     np.random.RandomState(SEED))
+    tables = (torch.from_numpy(pad.neighbors).to(dev),
+              torch.from_numpy(pad.degrees).to(dev))
+    labels = torch.from_numpy(ds.labels.astype(np.int32)).to(dev)
+    rows, summaries = [], {}
+
+    results = {}
+    for label, agg_func, b, steps in BF16_CACHED:
+        res = results[label] = bf16_cached(label, agg_func, b, steps,
+                                           feats16, tables, labels, dev)
+        summaries[label] = res["summary"]
+    assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    e = results["e"]
+    w1 = dense.cast_compute(e["params"]["sage"]["layers"][0]["weight"],
+                            bf16_config())
+    upcast_costs("[bf16 cached e]",
+                 torch.cat([feats16, e["cache"][0]], dim=-1), w1)
+    table, idx, g = e["gather"]
+    scatter_deviation("[bf16 cached e]", g, idx, table.shape[0])
+    for label, name in (("e", "gather_mean"), ("h", "gather_max")):
+        res = results[label]
+        (samples, valid), = res["refresh_draws"]
+        own = torch.arange(NODES, dtype=torch.int32, device=dev)
+        mask = (valid & (samples != own[:, None])).float()
+        rows.append(kernel_row(name, f"bf16 refresh ({label}), idx [{NODES}, "
+                               f"{FANOUT}] over [{NODES}, {FEATS}]", feats16,
+                               samples, mask, res["launches"][name]))
+    for label in ("e", "h", "i"):
+        res = results[label]
+        table, idx, g = res["gather"]
+        rows.append(gather_row(f"bf16 cached ({label}) full table, "
+                               f"{idx.shape[0]} ids over {list(table.shape)}",
+                               table, idx, res["launches"]["gather_rows"]))
+        rows.append(scatter_row(f"bf16 cached ({label}) layer-1 backward, "
+                                f"{idx.shape[0]} rows into "
+                                f"{list(table.shape)}", g, idx,
+                                table.shape[0],
+                                res["launches"]["scatter_rows"]))
+    del results, e, table, idx, g
+    phase_mark("phase 9 (e), (h), (i): bf16 cached")
+
+    f = bf16_dense(feats16, tables, labels, dev)
+    summaries["f"] = f["summary"]
+    # the pretransform's [2H, D] stack of the layer-1 weight's halves
+    w1 = dense.cast_compute(f["params"]["sage"]["layers"][0]["weight"],
+                            bf16_config())
+    upcast_costs("[bf16 dense f]", feats16,
+                 torch.cat([w1[:, :FEATS], w1[:, FEATS:]]))
+    rows.extend(mean_step_rows({"gather_mean": f["inputs"]},
+                               f["launches"]["gather_mean"], what="dense",
+                               scatter_launches=f["launches"]["scatter_rows"]))
+    del f
+    phase_mark("phase 9 (f): bf16 dense")
+
+    unsup = train_method("plus_unsup", train_ds, dev, free_running=False,
+                         dtype="bfloat16")
+    summaries["g"] = {"ms_per_step": unsup["ms_per_step"]}
+    step_inputs = capture_step_inputs(unsup["trainer"])
+    rows.extend(mean_step_rows(
+        step_inputs, unsup["launches"]["gather_mean"],
+        scatter_launches=unsup["launches"]["scatter_rows"]))
+    (emb, target_rows), = step_inputs["pair_scores"]
+    assert emb.dtype == torch.bfloat16
+    rows.append(scores_row(f"bf16 training step, {target_rows.shape[0]} x "
+                           f"{emb.shape[0]}, H {emb.shape[1]}", emb,
+                           target_rows, unsup["launches"]["pair_scores"]))
+    del unsup, step_inputs
+    phase_mark("phase 9 (g): bf16 compact plus_unsup")
+
+    # (j) compact sup MAX gcn: gather_max forward, and layer 2's backward
+    # composition (the tie gather through gather_rows, the tie test in
+    # bfloat16, scatter_rows)
+    res = train_method("sup", train_ds, dev, "MAX", True, free_running=False,
+                       dtype="bfloat16")
+    summaries["j"] = {"ms_per_step": res["ms_per_step"]}
+    rows.extend(max_step_rows(capture_step_inputs(res["trainer"]),
+                              res["launches"]))
+    log(json.dumps({"bf16": summaries}))
+    return rows
+
+
 def microbench_rows(dev: torch.device, launches: int) -> list:
     """Phase 8: the port's microbench at tools/pallas_microbench.py's
     shapes (it checks gather_rows against index_select, exact); its
@@ -1455,6 +2101,9 @@ def run(dev: torch.device) -> int:
     phase_done("phase 3 for the hybrid")
     rows.extend(microbench_rows(dev, total))
     phase_done("phase 8 (microbench)")
+
+    rows.extend(bf16_phase(ds, train_ds, dev, phase_done))
+    phase_done("phase 9 (bf16 training)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -18,16 +18,22 @@ model shuffles each row's slots).  ``--pipeline cached``
 ``--no_extend`` and ``--lstm_hybrid``, and trains MEAN, MAX and, with
 ``--agg_func LSTM --lstm_hybrid``, the cached-LSTM hybrid, whose ``--export``
 bundle records ``meta["lstm_hybrid"]`` so that serving runs the hybrid
-forward.  Not ported yet, and refused with the ROADMAP item that queues
-them: ``--pipeline cached_dist|dist`` (item 16), bfloat16 training (item
-14), and HOCON ``--config`` files, checkpoints on disk and ``--resume``
-(item 8).
+forward.  ``--compute_dtype bfloat16`` trains either pipeline in bfloat16
+with float32 master params; the ``--export`` bundle records the compute
+dtype, and ``graphsage_torch.infer`` serves it in that dtype.  Not ported
+yet, and refused with the ROADMAP item that queues them: ``--pipeline
+cached_dist|dist`` (item 16), and HOCON ``--config`` files, checkpoints on
+disk and ``--resume`` (item 8).  The dense pipeline
+(``graphsage_torch.train.dense``) is a library API, with no
+``--pipeline`` of its own, as in the JAX package.
 
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
         --agg_func LSTM --epochs 1
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
         --pipeline cached --agg_func LSTM --lstm_hybrid --epochs 2 \
         --export bundles/hybrid
+    python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
+        --compute_dtype bfloat16 --pipeline cached --table_cap 8 --epochs 2
 """
 
 from __future__ import annotations

@@ -18,7 +18,9 @@ layer, bottom-up:
 
 Rows past the real union size are padding: idx/self_idx 0, mask 0.
 
-The encoder trains MEAN, MAX and LSTM GraphSAGE in float32.  A MEAN layer
+The encoder trains MEAN, MAX and LSTM GraphSAGE, in float32 or, given
+bfloat16 tables and params that the trainers round to bfloat16
+(``train.dense.cast_compute``), in bfloat16.  A MEAN layer
 aggregates with ``ops.aggregate.mean_aggregate`` (the ``gather_mean`` kernel
 on the card, with its scatter-add backward), a MAX layer with
 ``max_aggregate`` (``gather_max``, with the tie-splitting backward), an LSTM
@@ -39,6 +41,7 @@ from graphsage_torch.models.layers import (init_sage_layer,
                                            sage_layer_apply)
 from graphsage_torch.models.lstm_agg import init_lstm_agg, lstm_aggregate
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
+from graphsage_torch.ops.scatter import take_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +143,7 @@ def _layer(cfg: GraphSageConfig, params: dict, layer: int, h: torch.Tensor,
     if _use_pretransform(cfg, h, frontier):
         return _mean_pretransform_layer(cfg, layer_params, h, frontier)
     agg = _aggregate(cfg, params, layer, h, frontier)
-    self_feats = h[frontier.self_idx.long()]
+    self_feats = take_rows(h, frontier.self_idx)
     return sage_layer_apply(layer_params, self_feats, agg, gcn=cfg.gcn)
 
 
@@ -179,7 +182,7 @@ def graphsage_apply_gathered(params: dict, cfg: GraphSageConfig,
         h_cat = mean_pretransform(w, feats)                      # [N, 2H]
         hdim = w.shape[0]
         agg = mean_aggregate(h_cat[:, hdim:], idx_t, f0.mask)
-        h = torch.relu(agg + h_cat[:, :hdim][self_t])
+        h = torch.relu(agg + take_rows(h_cat[:, :hdim], self_t))
 
     for layer in range(1, cfg.num_layers):
         h = _layer(cfg, params, layer, h, frontiers[layer])
@@ -217,4 +220,4 @@ def _mean_pretransform_layer(cfg: GraphSageConfig, layer_params: dict,
     h_cat = mean_pretransform(w, h)                # [M, 2H]
     hdim = w.shape[0]
     agg = mean_aggregate(h_cat[:, hdim:], frontier.idx, frontier.mask)
-    return torch.relu(agg + h_cat[:, :hdim][frontier.self_idx.long()])
+    return torch.relu(agg + take_rows(h_cat[:, :hdim], frontier.self_idx))

@@ -14,11 +14,25 @@ Reference semantics:
   bias, xavier-uniform on the weight, U(+-1/sqrt(fan_in)) on the bias, then
   log_softmax.
 
-Products take float32 operands, as the JAX package's ``jnp.dot`` does once
-it promotes a bfloat16 activation against the float32 weights, and round
-once to the activation dtype.  They are plain ``torch.matmul``; callers on the
-card set ``torch.backends.cuda.matmul.allow_tf32 = False`` for float32
-parity.
+Products follow ``jnp.dot(..., preferred_element_type=float32)`` and round
+once to the activation dtype.  Under bfloat16 compute both operands are
+bfloat16 (the trainers round the float32 master weights with
+``train.dense.cast_compute`` inside the loss), and the port upcasts them
+to float32 and takes a float32 ``torch.matmul``: the products of bfloat16
+numbers are exact in float32, so this is the same arithmetic with float32
+accumulation.  The classifier adds its bfloat16-rounded bias to the float32
+logits, as JAX's promotion does.  ``torch.backends.cuda.matmul.allow_tf32``
+stays False (PyTorch's default) for float32 parity.
+
+The bfloat16 products that stay bfloat16 (the LSTM cell's gate GEMMs, the
+cached pipeline's upper-layer ``einsum``, forward and backward) are
+``torch.matmul`` in bfloat16; on the card cuBLAS may then reduce in
+bfloat16 (split-K) unless
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` is
+False.  Importing this module (so any of ``graphsage_torch.models``) sets
+it False, once, for the process: the sums then stay in float32 as JAX's
+dots keep them on the TPU, for every bfloat16 GEMM of the port and its
+autograd backward alike.
 """
 
 from __future__ import annotations
@@ -30,6 +44,9 @@ from torch import nn
 
 from graphsage_torch.models.lstm_agg import LSTMAggregator
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
+
+
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def xavier_uniform(generator: torch.Generator, shape: tuple[int, int],

@@ -14,7 +14,7 @@ so ``graphsage_torch.convert.params_from_jax`` carries a JAX cell over
 unchanged.
 
 The slot gather is ``ops.gather.gather_rows`` (the hand-written
-``gather_rows`` CUDA kernel on the card, with the ``index_add_`` backward);
+``gather_rows`` CUDA kernel on the card, with the ``scatter_rows`` backward);
 the cell is ``torch.matmul`` and PyTorch elementwise work, as the JAX package
 leaves it to XLA.  Each scan step is recomputed in the backward
 (``torch.utils.checkpoint``, the counterpart of the JAX package's
@@ -52,7 +52,10 @@ def _lstm_cell(params: dict, x: torch.Tensor, h: torch.Tensor,
     """One recurrence step, with the JAX package's cast points
     (``lstm_agg.py:48-56``): the gates in the input dtype, the summed bias
     cast to it, the cell state ``c`` in float32, and
-    ``h_new = o * tanh(c_new)`` with the tanh cast to the input dtype."""
+    ``h_new = o * tanh(c_new)`` with the tanh cast to the input dtype.  In
+    bfloat16 the gate GEMMs return bfloat16, as JAX's ``jnp.dot`` without
+    ``preferred_element_type`` does; their sums run in float32 (see
+    ``models/layers.py`` on cuBLAS's bfloat16 reductions)."""
     gates = (torch.matmul(x, params["w_ih"].T.to(x.dtype))
              + torch.matmul(h, params["w_hh"].T.to(h.dtype))
              + (params["b_ih"] + params["b_hh"]).to(x.dtype))

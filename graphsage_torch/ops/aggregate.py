@@ -23,12 +23,13 @@ Both have a gradient on both devices: ``mean_aggregate`` and
 plain version on a CPU tensor and the kernel on a CUDA tensor, and whose
 backward is the JAX package's custom VJP (``_pallas_mean_bwd`` and
 ``_pallas_max_bwd``, ``graphsage_tpu/ops/pallas_aggregate.py:147-184``, XLA
-scatters there, ``index_add_`` here).  MAX routes each output element's
-gradient to the slots that hold the maximum and splits it equally among
-tied slots, as ``jax.grad`` of ``jnp.max`` does; its tie test gathers the
-slot rows again, through the ``gather_rows`` kernel on the card.  The CPU
-takes the same Functions with the plain forwards, so the CPU tests
-exercise the backwards the card runs.
+scatters there, ``ops.scatter.scatter_rows`` here: JAX's order of the
+bfloat16 adds, the ``scatter_rows`` kernel on the card).  MAX routes each
+output element's gradient to the slots that hold the maximum and splits it
+equally among tied slots, as ``jax.grad`` of ``jnp.max`` does; its tie
+test gathers the slot rows again, through the ``gather_rows`` kernel on
+the card.  The CPU takes the same Functions with the plain forwards, so
+the CPU tests exercise the backwards the card runs.
 
 ``pair_cosine`` is the per-pair cosine score of the unsupervised losses
 (``graphsage_tpu/ops/aggregate.py:74-87``), plain PyTorch.
@@ -41,11 +42,12 @@ import torch
 from graphsage_torch.ops import build
 
 # Launches of each CUDA kernel (``pair_scores`` is ops/sddmm.py's,
-# ``gather_rows`` ops/gather.py's).  A wrapper adds one where it launches
-# its kernel and nowhere else; runs that must show they went through the
-# kernels set these to 0 before and read them after.
+# ``gather_rows`` ops/gather.py's, ``scatter_rows`` ops/scatter.py's).  A
+# wrapper adds one where it launches its kernel and nowhere else; runs that
+# must show they went through the kernels set these to 0 before and read
+# them after.
 LAUNCHES = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0}
+            "gather_rows": 0, "scatter_rows": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -207,14 +209,15 @@ def mean_aggregate_backward(g: torch.Tensor, idx: torch.Tensor,
                             embed_dtype: torch.dtype) -> torch.Tensor:
     """d(embed) of the masked mean: each slot's row receives
     ``g[u] * mask[u, s] / max(sum_s mask[u, s], 1)``, accumulated into a
-    zero [M, D] in the embed dtype.  On the card ``index_add_`` adds with
-    atomics, so the order of the sums (and the last bit) varies by run."""
+    zero [M, D] in the embed dtype by ``ops.scatter.scatter_rows``."""
+    # imported here: ops.scatter imports this module
+    from graphsage_torch.ops.scatter import scatter_rows
+
     cnt = mask.float().sum(dim=1, keepdim=True).clamp_min(1.0)
     w = (mask.float() / cnt).to(g.dtype)                         # [U, S]
     contrib = (g[:, None, :] * w[:, :, None]).to(embed_dtype)    # [U, S, D]
-    d_embed = torch.zeros(embed_shape, dtype=embed_dtype, device=g.device)
-    return d_embed.index_add_(0, idx.reshape(-1).long(),
-                              contrib.reshape(-1, embed_shape[1]))
+    return scatter_rows(contrib.reshape(-1, embed_shape[1]), idx,
+                        embed_shape[0])
 
 
 def mean_aggregate(embed: torch.Tensor, idx: torch.Tensor,
@@ -255,11 +258,12 @@ def max_aggregate_backward(g: torch.Tensor, embed: torch.Tensor,
     CPU), mark the valid slots equal to the output in the embed dtype (the
     forward returns exact slot values, so the test is exact in bfloat16
     too), divide ``g`` by the number of tied slots, and add each slot's
-    share into a zero [M, D] in the embed dtype with ``index_add_`` (on the
-    card with atomics, so the last bit varies by run)."""
-    # imported here: ops.gather imports this module
+    share into a zero [M, D] in the embed dtype with
+    ``ops.scatter.scatter_rows``."""
+    # imported here: ops.gather and ops.scatter import this module
     from graphsage_torch.ops.gather import (gather_rows_kernel,
                                             gather_rows_plain)
+    from graphsage_torch.ops.scatter import scatter_rows
 
     u, s = idx.shape
     d = embed.shape[1]
@@ -270,8 +274,7 @@ def max_aggregate_backward(g: torch.Tensor, embed: torch.Tensor,
               & (mask[..., None] > 0)).to(g.dtype)
     denom = is_max.sum(dim=1, keepdim=True).clamp_min(1.0)
     contrib = (g[:, None, :] * is_max / denom).to(embed.dtype)   # [U, S, D]
-    d_embed = torch.zeros(embed.shape, dtype=embed.dtype, device=g.device)
-    return d_embed.index_add_(0, flat.long(), contrib.reshape(-1, d))
+    return scatter_rows(contrib.reshape(-1, d), flat, embed.shape[0])
 
 
 def max_aggregate(embed: torch.Tensor, idx: torch.Tensor,
@@ -288,8 +291,10 @@ def pair_cosine(embed: torch.Tensor, p_idx: torch.Tensor,
     clamped at ``eps`` (``F.cosine_similarity`` semantics, reference
     src/models.py:82,90).  p_idx/q_idx: int index tensors of one shape into
     embed's rows; returns that shape."""
-    a = embed[p_idx.long()].float()
-    b = embed[q_idx.long()].float()
+    from graphsage_torch.ops.scatter import take_rows
+
+    a = take_rows(embed, p_idx).float()
+    b = take_rows(embed, q_idx).float()
     na = torch.linalg.vector_norm(a, dim=-1).clamp_min(eps)
     nb = torch.linalg.vector_norm(b, dim=-1).clamp_min(eps)
     return (a * b).sum(dim=-1) / (na * nb)

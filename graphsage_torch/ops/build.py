@@ -30,6 +30,7 @@ SOURCES = {
     "aggregate": _PKG / "csrc" / "aggregate.cu",
     "sddmm": _PKG / "csrc" / "sddmm.cu",
     "gather": _PKG / "csrc" / "gather.cu",
+    "scatter": _PKG / "csrc" / "scatter.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "graphsage_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,6 +54,17 @@ _SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
 _ROWS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_void_p]
+# scatter keys: (device, g, idx, keys, J, D, M, stream)
+_KEYS_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+              ctypes.c_void_p]
+# scatter rows: (device, g, sorted_keys, order, starts, work, out, J, D, M,
+#                vec, stream); work: (J, D, vec) -> int32 scratch length
+_SCATTER_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_void_p]
+_WORK_ARGS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
 _ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
 _SIGNATURES = {
     "aggregate": {
@@ -66,6 +78,12 @@ _SIGNATURES = {
     },
     "gather": {
         "gs_gather_rows": (_ROWS_ARGS, ctypes.c_int),
+        "gs_error_string": _ERROR_STRING,
+    },
+    "scatter": {
+        "gs_scatter_keys": (_KEYS_ARGS, ctypes.c_int),
+        "gs_scatter_rows": (_SCATTER_ARGS, ctypes.c_int),
+        "gs_scatter_work": (_WORK_ARGS, ctypes.c_int64),
         "gs_error_string": _ERROR_STRING,
     },
 }

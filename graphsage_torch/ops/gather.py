@@ -10,7 +10,8 @@ layer-1 gather (``graphsage_tpu/train/cached.py:198-211``).
 - ``gather_rows_kernel``: the hand-written CUDA kernel
   (``graphsage_torch/csrc/gather.cu``), a CUDA tensor only.
 - ``GatherRows``: the gather with the VJP of ``jnp.take(table, ids,
-  axis=0)``, an ``index_add_`` of the output gradient into a zero [M, D].
+  axis=0)``, the output gradient added into a zero [M, D] by
+  ``ops.scatter.scatter_rows`` (JAX's order of the bfloat16 adds).
   Its forward is the kernel on a CUDA tensor and the plain version on a
   CPU tensor.  Only the full-table branch of the cached forward needs the
   backward (its table carries the gradient of W1); the per-occurrence
@@ -26,6 +27,7 @@ import torch
 from graphsage_torch.ops import build
 from graphsage_torch.ops.aggregate import (_DTYPE_CODES, _INT_MAX, LAUNCHES,
                                           widest_unit)
+from graphsage_torch.ops.scatter import scatter_rows
 
 
 def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -82,20 +84,9 @@ def gather_rows_kernel(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_rows_backward(g: torch.Tensor, idx: torch.Tensor,
-                         num_rows: int) -> torch.Tensor:
-    """d(table) of the gather: each output row's gradient added into the
-    row it came from, in a zero [M, D] of g's dtype.  On the card
-    ``index_add_`` adds with atomics, so the order of the sums (and the
-    last bit) varies by run."""
-    d_table = torch.zeros((num_rows, g.shape[1]), dtype=g.dtype,
-                          device=g.device)
-    return d_table.index_add_(0, idx.long(), g)
-
-
 class GatherRows(torch.autograd.Function):
-    """The row gather with the ``index_add_`` backward; the gradient flows
-    to ``table`` only."""
+    """The row gather with the ``scatter_rows`` backward; the gradient
+    flows to ``table`` only."""
 
     @staticmethod
     def forward(ctx, table, idx):
@@ -108,7 +99,7 @@ class GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, = ctx.saved_tensors
-        return gather_rows_backward(g, idx, ctx.num_rows), None
+        return scatter_rows(g, idx, ctx.num_rows), None
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,165 @@
+"""Scatter-add of row gradients, ``out[r] = sum of g[j] over idx[j] == r``:
+the backward of every row gather that carries a gradient.
+
+The JAX package differentiates its gathers (``jnp.take``, and the Pallas
+aggregates' ``_pallas_mean_bwd`` and ``_pallas_max_bwd``,
+``graphsage_tpu/ops/pallas_aggregate.py:147-184``) into the XLA scatter
+``jnp.zeros_like(embed).at[idx].add(contrib)`` in the embed dtype.  XLA
+on the CPU adds the contributions one at a time in index order, each add
+rounded to that dtype (``tests/test_torch_bf16.py`` holds the port against
+JAX's VJPs bit for bit there; the TPU's order is not measured).  In
+bfloat16 the order decides the result: a running sum stops growing once it
+is about 256 times a term, so a hub row of the power-law graph ends far
+from its exact sum, at a place that depends on the order.  So the
+bfloat16 scatter keeps JAX's order on both devices:
+
+- ``scatter_rows_plain``: plain PyTorch on any device, the CPU path and the
+  reference the kernel is held against: the contributions grouped by their
+  rank within their row, one elementwise bfloat16 add a rank.
+- ``scatter_rows_kernel``: the hand-written CUDA kernel
+  (``graphsage_torch/csrc/scatter.cu``), bfloat16 CUDA tensors only; equal
+  to the plain version bit for bit.
+- ``scatter_rows``: float32 (any dtype but bfloat16) takes ``index_add_``
+  on both devices (atomics on the card: the order moves only the last bits
+  there, and the float32 paths keep what earlier measurements timed);
+  bfloat16 takes the plain version on a CPU tensor and launches the kernel
+  on a CUDA tensor.
+- ``take_rows``: the row gather ``table[idx]`` (``index_select``, not a
+  kernel: ``jnp.take`` is an XLA gather in the JAX package) with the
+  ``scatter_rows`` backward: the self-row gathers of the layers and the
+  pair gathers of the losses.
+
+Contributions that are +-0 in every element are skipped: added to a sum
+that started at +0 they leave it unchanged, and the sampler's padding slots
+send many such rows to one id.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from graphsage_torch.ops import build
+from graphsage_torch.ops.aggregate import _INT_MAX, LAUNCHES
+
+
+def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
+                       num_rows: int) -> torch.Tensor:
+    """g [J, D] added into a zero [num_rows, D] of g's dtype at rows idx
+    [J], one contribution at a time in increasing j (plain)."""
+    out = torch.zeros((num_rows, g.shape[1]), dtype=g.dtype,
+                      device=g.device)
+    keep = torch.nonzero((g != 0).any(dim=1)).reshape(-1)
+    if keep.numel() == 0:
+        return out
+    rows = idx.reshape(-1).long()[keep]
+    order = torch.argsort(rows, stable=True)
+    sorted_rows = rows[order]
+    counts = torch.bincount(sorted_rows, minlength=num_rows)
+    first = torch.cumsum(counts, 0) - counts
+    rank = (torch.arange(order.numel(), device=g.device)
+            - first[sorted_rows])
+    by_rank = order[torch.argsort(rank, stable=True)]
+    rows, terms = rows[by_rank], g[keep[by_rank]]
+    lo = 0
+    # rank r holds at most one contribution a row: one elementwise add each
+    for hi in torch.cumsum(torch.bincount(rank), 0).tolist():
+        r = rows[lo:hi]
+        out.index_put_((r,), out.index_select(0, r) + terms[lo:hi])
+        lo = hi
+    return out
+
+
+def _check_kernel_args(g: torch.Tensor, idx: torch.Tensor,
+                       num_rows: int) -> None:
+    """What the kernel takes: g [J, D] bfloat16 contiguous, idx [J] int32
+    contiguous with values in [0, num_rows), both on one CUDA device."""
+    if g.dim() != 2 or idx.dim() != 1 or idx.shape[0] != g.shape[0]:
+        raise ValueError(f"expected g [J, D] and idx [J]; got "
+                         f"{tuple(g.shape)}, {tuple(idx.shape)}")
+    if g.dtype != torch.bfloat16:
+        raise TypeError(f"g must be bfloat16, not {g.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, not {idx.dtype}")
+    if not (g.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("g and idx must be contiguous")
+    if max(g.shape[1], num_rows) >= _INT_MAX:
+        raise ValueError("D and the row count must fit in 31 bits")
+    if not (g.is_cuda and idx.device == g.device):
+        raise ValueError(f"g and idx must lie on one CUDA device; got "
+                         f"{g.device}, {idx.device}")
+
+
+def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor,
+                        num_rows: int) -> torch.Tensor:
+    """Launch the ``scatter_rows`` CUDA kernel: g [J, D] bfloat16 added into
+    a zero [num_rows, D] at rows idx [J] in increasing j, equal to
+    ``scatter_rows_plain`` bit for bit.  Its passes: the keys (a row's id,
+    or num_rows for an all-zero contribution), a stable ``torch.sort`` of
+    them, the row offsets, and the ordered sums (a warp a short row, a
+    block a row of more than 256 contributions)."""
+    _check_kernel_args(g, idx, num_rows)
+    j, d = g.shape
+    out = torch.empty((num_rows, d), dtype=g.dtype, device=g.device)
+    if d == 0:
+        return out
+    lib = build.load_library("scatter")
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    keys = torch.empty(j, dtype=torch.int32, device=g.device)
+    rc = lib.gs_scatter_keys(g.device.index, g.data_ptr(), idx.data_ptr(),
+                             keys.data_ptr(), j, d, num_rows, stream)
+    if rc == 0:
+        sorted_keys, order = torch.sort(keys, stable=True)
+        starts = torch.empty(num_rows + 1, dtype=torch.int64,
+                             device=g.device)
+        vec = (2 if d % 2 == 0 and g.data_ptr() % 4 == 0
+               and out.data_ptr() % 4 == 0 else 1)
+        work = torch.empty(lib.gs_scatter_work(j, d, vec), dtype=torch.int32,
+                           device=g.device)
+        rc = lib.gs_scatter_rows(g.device.index, g.data_ptr(),
+                                 sorted_keys.data_ptr(), order.data_ptr(),
+                                 starts.data_ptr(), work.data_ptr(),
+                                 out.data_ptr(), j, d, num_rows, vec, stream)
+    if rc != 0:
+        raise RuntimeError(f"scatter_rows launch failed: CUDA error {rc} "
+                           f"({lib.gs_error_string(rc).decode()})")
+    LAUNCHES["scatter_rows"] += 1
+    return out
+
+
+def scatter_rows(g: torch.Tensor, idx: torch.Tensor,
+                 num_rows: int) -> torch.Tensor:
+    """d(table) of the gather ``table[idx]`` with output gradient g [J, D]:
+    a [num_rows, D] tensor of g's dtype (see the module docstring for
+    which version runs)."""
+    idx = idx.reshape(-1)
+    if g.dtype != torch.bfloat16:
+        out = torch.zeros((num_rows, g.shape[1]), dtype=g.dtype,
+                          device=g.device)
+        return out.index_add_(0, idx.long(), g)
+    if not g.is_cuda:
+        return scatter_rows_plain(g, idx, num_rows)
+    return scatter_rows_kernel(g.contiguous(), idx.int().contiguous(),
+                               num_rows)
+
+
+class TakeRows(torch.autograd.Function):
+    """``table[idx]`` with the ``scatter_rows`` backward; the gradient
+    flows to ``table`` only."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.num_rows = table.shape[0]
+        return table.index_select(0, idx.long())
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return scatter_rows(g, idx, ctx.num_rows), None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` [M, D] at ``idx`` (any shape) -> [*idx.shape, D],
+    differentiable in ``table``."""
+    out = TakeRows.apply(table, idx.reshape(-1))
+    return out.reshape(*idx.shape, table.shape[1])

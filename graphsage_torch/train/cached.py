@@ -30,8 +30,14 @@ among tied maxima as ``jnp.max`` does) and LSTM as the cached-LSTM hybrid
 (``graphsage_tpu/train/cached.py:40-52``): the leaf level is the MEAN
 cache, and the live LSTM cell of each upper layer scans its tree-contiguous
 [U, K+1, H] reshape (``lstm_scan``, no gather).  The layer-0 cell is never
-used and gets a zero gradient.  bfloat16 compute (ROADMAP A item 14) is not
-ported.
+used and gets a zero gradient.
+
+bfloat16 compute: ``cached_forward`` rounds the params, the feature table
+and the cache to bfloat16 with ``train.dense.cast_compute`` (JAX
+``cached.py:153-155``); the refresh aggregates the bfloat16 table with
+float32 sums inside ``gather_mean`` / ``gather_max``, and the upper MEAN
+layers take a bfloat16 ``einsum`` rounded to bfloat16 and divided by a
+bfloat16 count, JAX's cast points.
 """
 
 from __future__ import annotations
@@ -41,22 +47,21 @@ import dataclasses
 import torch
 
 from graphsage_torch.losses import supervised_nll, unsup_loss_from_pairbatch
-from graphsage_torch.models.graphsage import GraphSageConfig
+from graphsage_torch.models.graphsage import GraphSageConfig, compute_dtype
 from graphsage_torch.models.layers import classifier_apply, sage_layer_apply
 from graphsage_torch.models.lstm_agg import lstm_scan
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 from graphsage_torch.ops.gather import gather_rows
 from graphsage_torch.sampler.device import sample_frontiers_dense
+from graphsage_torch.train.dense import cast_compute
 from graphsage_torch.train.optim import apply_gradients
 
 
 def _check_cached(mcfg: GraphSageConfig) -> None:
-    """MEAN, MAX and LSTM (the hybrid) in float32."""
+    """MEAN, MAX and LSTM (the hybrid), in float32 or bfloat16."""
     if mcfg.agg_func not in ("MEAN", "MAX", "LSTM"):
         raise ValueError(f"unknown agg_func {mcfg.agg_func!r}")
-    if mcfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bfloat16 training is not ported yet (ROADMAP A item 14)")
+    compute_dtype(mcfg)
 
 
 def refresh_leaf_cache(hop, feats: torch.Tensor, fanout: int,
@@ -123,10 +128,13 @@ def cached_forward(params: dict, mcfg: GraphSageConfig, feats: torch.Tensor,
     -> [B, out_size].  ``feats``/``cache_feats``/``cache_count`` are the
     epoch-constant tables.  ``full_table`` forces the layer-1 branch (both
     are exact); by default ``layer1_full_table`` decides, as in the JAX
-    package."""
+    package.  Under bfloat16 the params, ``feats`` and ``cache_feats`` are
+    rounded to it here."""
     _check_cached(mcfg)
     is_max = mcfg.agg_func == "MAX"
-    sage = params["sage"]
+    sage = cast_compute(params["sage"], mcfg)
+    feats = cast_compute(feats, mcfg)
+    cache_feats = cast_compute(cache_feats, mcfg)
     w1 = sage["layers"][0]
     if full_table is None:
         full_table = layer1_full_table(feats.shape[0], feats.shape[1],
@@ -204,8 +212,9 @@ class CachedStep:
             loss = unsup_loss_from_pairbatch(embs, pairs, self.unsup_loss,
                                              q=self.q, margin=self.margin)
         if self.learn_method != "unsup":
-            sup = supervised_nll(classifier_apply(params["clf"], embs),
-                                 labels, row_mask)
+            logp = classifier_apply(cast_compute(params["clf"], self.mcfg),
+                                    embs)
+            sup = supervised_nll(logp, labels, row_mask)
             loss = sup if loss is None else loss + sup
         apply_gradients(params, loss, ("sage", "clf"), self.lr, self.clip)
         return loss.detach()

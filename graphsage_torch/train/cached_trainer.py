@@ -20,11 +20,12 @@ Port of ``graphsage_tpu/train/cached_trainer.py``.  Against the compact
   ``to_padded_sampled(table_cap, RandomState(seed))``, or the full
   ``to_padded()`` without a cap.
 
-MEAN and MAX train here, with gcn on or off, in float32, and so does the
-cached-LSTM hybrid (``lstm_hybrid=True``: MEAN leaf cache, live LSTM cells
-above, ``train/cached.py``).  The exact LSTM aggregator cannot ride the leaf
-cache and is refused with ``ValueError`` without that opt-in.  bfloat16 is
-not ported (ROADMAP A item 14).
+MEAN and MAX train here, with gcn on or off, and so does the cached-LSTM
+hybrid (``lstm_hybrid=True``: MEAN leaf cache, live LSTM cells above,
+``train/cached.py``), in float32 or in bfloat16 with float32 master params
+(the feature table and the leaf cache in bfloat16).  The exact LSTM
+aggregator cannot ride the leaf cache and is refused with ``ValueError``
+without that opt-in.
 """
 
 from __future__ import annotations
@@ -127,7 +128,7 @@ class CachedTrainer(Trainer):
 
     @staticmethod
     def _check_config(model_cfg: GraphSageConfig) -> None:
-        """MEAN, MAX and the LSTM hybrid, float32."""
+        """MEAN, MAX and the LSTM hybrid, float32 or bfloat16."""
         _check_cached(model_cfg)
 
     def _refresh(self):

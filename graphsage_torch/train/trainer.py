@@ -27,8 +27,12 @@ Parameters are ``{"sage": {"layers": [{"weight"}]}, "clf": {"weight",
 tensors, the JAX package's layout, so ``convert.params_from_jax`` carries a
 JAX ``Trainer``'s params over unchanged.  The trainer runs on the card
 unless ``device="cpu"`` is given; with no card and no device it raises.
-MEAN, MAX and LSTM train in float32 (LSTM batches get their slots shuffled
-on the host, as in the JAX package); bfloat16 raises (ROADMAP A item 14).
+MEAN, MAX and LSTM train (LSTM batches get their slots shuffled on the
+host, as in the JAX package), in float32 or in bfloat16 with float32 master
+params: the feature table is held in the compute dtype, and the step rounds
+the params to it inside the loss (``train.dense.cast_compute``), as the
+JAX package's step does.  Embeddings come back to the host as float32, and
+the classifier-only fit and the predictions run in float32 on them.
 """
 
 from __future__ import annotations
@@ -46,12 +50,13 @@ from graphsage_torch.data.loaders import Dataset
 from graphsage_torch.infer import _resolve_device
 from graphsage_torch.losses import supervised_nll, unsup_loss_from_pairbatch
 from graphsage_torch.models.graphsage import (Frontier, GraphSageConfig,
-                                              _check_trainable,
+                                              _check_trainable, compute_dtype,
                                               graphsage_apply_gathered,
                                               init_graphsage)
 from graphsage_torch.models.layers import classifier_apply, init_classifier
 from graphsage_torch.sampler import PairSampler, build_compact_batch
 from graphsage_torch.sampler.compact import _bucket
+from graphsage_torch.train.dense import cast_compute
 from graphsage_torch.train.metrics import micro_f1
 from graphsage_torch.train.optim import apply_gradients
 from graphsage_torch.utils.obs import MetricsLogger
@@ -149,8 +154,10 @@ class Trainer:
                       "clf": init_classifier(gen, model_cfg.out_size,
                                              dataset.num_classes)}
         self.params = _leaf_params(params, self.device)
+        # the constant feature table in the compute dtype: in bfloat16 every
+        # gather moves half the bytes, and the aggregates sum in float32
         self.feats = _to_device(dataset.features.astype(np.float32),
-                                self.device)
+                                self.device).to(compute_dtype(model_cfg))
         self.labels_np = np.asarray(dataset.labels)
         self.rng = np.random.RandomState(train_cfg.seed)
         self.pair_sampler = PairSampler(dataset.graph, dataset.train_nodes)
@@ -165,16 +172,18 @@ class Trainer:
 
     @staticmethod
     def _check_config(model_cfg: GraphSageConfig) -> None:
-        """The compact pipeline trains MEAN, MAX and LSTM in float32."""
+        """The compact pipeline trains MEAN, MAX and LSTM in float32 or
+        bfloat16."""
         _check_trainable(model_cfg)
-        if model_cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                "bfloat16 training is not ported yet (ROADMAP A item 14)")
+        compute_dtype(model_cfg)
 
     # ---------------------------------------------------------------- step
     def _encode(self, sage_params: dict, cb) -> torch.Tensor:
+        """The encoder on one compact batch, in the compute dtype; the
+        params are rounded to it here, inside the differentiated function,
+        so that the float32 masters get float32 gradients."""
         return graphsage_apply_gathered(
-            sage_params, self.mcfg, self.feats,
+            cast_compute(sage_params, self.mcfg), self.mcfg, self.feats,
             _to_device(cb.x0_ids, self.device), _frontiers(cb, self.device))
 
     def _step(self, pb, cb, labels: np.ndarray,
@@ -185,7 +194,8 @@ class Trainer:
         embs = self._encode(self.params["sage"], cb)
         loss = torch.zeros((), device=self.device)
         if tcfg.learn_method in ("sup", "plus_unsup"):
-            logp = classifier_apply(self.params["clf"], embs)
+            logp = classifier_apply(cast_compute(self.params["clf"],
+                                                 self.mcfg), embs)
             loss = loss + supervised_nll(logp,
                                          _to_device(labels, self.device),
                                          _to_device(row_mask, self.device))

@@ -16,9 +16,11 @@ in float32 in other orders and round once, and near 0, where a dot product
 cancels, a float32 difference of ~1e-5 is many bf16 ulps.
 Gradients (gather-mean's scatter-add, gather-max's tie-splitting
 scatter-add, the score block's analytic backward, the row gather's
-``index_add_``) against autograd through the plain versions: float32
-rtol=atol=1e-5 (``index_add_`` adds with atomics, in no fixed order).  The
-row gather is a copy: equal to ``index_select`` bit for bit.
+scatter-add) against autograd through the plain versions: float32
+rtol=atol=1e-5 (float32 scatters are ``index_add_``, atomics in no fixed
+order).  bfloat16 scatter-adds (``ops.scatter``) keep JAX's order: equal
+bit for bit to the same backward on the CPU.  The row gather is a copy:
+equal to ``index_select`` bit for bit.
 """
 
 import ctypes
@@ -31,6 +33,7 @@ import torch
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.ops import build
 from graphsage_torch.ops import gather
+from graphsage_torch.ops import scatter
 from graphsage_torch.ops import sddmm
 
 CASES = {
@@ -90,15 +93,20 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
                        agg.max_aggregate_plain(e, i, m))
     assert torch.equal(gather.gather_rows(e, i[:, 0]),
                        gather.gather_rows_plain(e, i[:, 0]))
+    g = e[:idx.shape[0], :8].bfloat16()
+    assert torch.equal(scatter.scatter_rows(g, i[:, 0], len(e)),
+                       scatter.scatter_rows_plain(g, i[:, 0], len(e)))
     assert agg.LAUNCHES == before
     agg.reset_launches()
     assert agg.LAUNCHES == {"gather_mean": 0, "gather_max": 0,
-                            "pair_scores": 0, "gather_rows": 0}
+                            "pair_scores": 0, "gather_rows": 0,
+                            "scatter_rows": 0}
 
 
 def test_build_targets_hopper_into_the_build_directory():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
-    assert set(build.SOURCES) == {"aggregate", "sddmm", "gather"}
+    assert set(build.SOURCES) == {"aggregate", "sddmm", "gather",
+                                  "scatter"}
     for name in build.SOURCES:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.suffix == ".so"
@@ -825,3 +833,334 @@ def test_gather_rows_backward_on_card(case):
         grads.append(w.grad)
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
     assert not grads[0][:, :d].any()
+
+
+# ------------------------------------------------------------ scatter
+
+SCATTER_CASES = {
+    "random": dict(m=53, d=19, j=400),            # odd width: 16-bit lanes
+    "hub128": dict(m=300, d=128, j=6000),         # 3,000 into row 0
+    "features602": dict(m=500, d=602, j=700),
+    "zero_rows": dict(m=40, d=64, j=2000),        # +-0 contributions
+    "no_rows": dict(m=30, d=8, j=0),
+    "one_col": dict(m=7, d=1, j=90),
+    # rows of more than 256 contributions take a block each
+    "long602": dict(m=50, d=602, j=3000),         # 1,000 into row 0
+    "long_odd": dict(m=20, d=33, j=2000),         # 667 into row 5
+    "many_long": dict(m=300, d=64, j=78000),      # more rows than blocks
+}
+
+
+def _scatter_rows_case(name, seed=0):
+    c = SCATTER_CASES[name]
+    rng = np.random.RandomState(seed)
+    g = torch.from_numpy(rng.randn(c["j"], c["d"]).astype(np.float32)
+                         ).bfloat16()
+    idx = rng.randint(0, c["m"], c["j"]).astype(np.int32)
+    if name == "hub128":
+        idx[::2] = 0
+    if name == "long602":
+        idx[:1000] = 0
+        idx[1000:1400] = 1
+    if name == "long_odd":
+        idx[::3] = 5
+    if name == "zero_rows":
+        idx[:1000] = 3
+        g[::3] = 0.0
+        g[1::3] = -0.0
+    return g, torch.from_numpy(idx), c["m"]
+
+
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_scatter_rows_plain_adds_in_index_order(case):
+    """The plain version equals the loop that adds each contribution in
+    index order, each add rounded to bfloat16, bit for bit (signs of zero
+    included: an untouched or all-zero row is +0)."""
+    g, idx, m = _scatter_rows_case(case)
+    got = scatter.scatter_rows_plain(g, idx, m)
+    want = _sequential_scatter(g, idx, m)
+    assert torch.equal(got, want)
+    assert not torch.signbit(got[got == 0]).any()
+
+
+def test_scatter_rows_keeps_float32_on_index_add():
+    g = torch.randn(50, 6)
+    idx = torch.randint(0, 9, (50,),
+                        generator=torch.Generator().manual_seed(1))
+    want = torch.zeros(9, 6).index_add_(0, idx, g)
+    assert torch.equal(scatter.scatter_rows(g, idx.int(), 9), want)
+
+
+@pytest.mark.parametrize("args,error,match", [
+    (dict(g=torch.zeros(4, 3), idx=torch.zeros(4, dtype=torch.int32)),
+     TypeError, "bfloat16"),
+    (dict(g=torch.zeros(4, 3, dtype=torch.bfloat16),
+          idx=torch.zeros(4, dtype=torch.int64)), TypeError, "idx"),
+    (dict(g=torch.zeros(3, 4, dtype=torch.bfloat16).T,
+          idx=torch.zeros(4, dtype=torch.int32)), ValueError, "contiguous"),
+    (dict(g=torch.zeros(4, 3, dtype=torch.bfloat16),
+          idx=torch.zeros(5, dtype=torch.int32)), ValueError, "expected"),
+    (dict(g=torch.zeros(4, 3, dtype=torch.bfloat16),
+          idx=torch.zeros(4, dtype=torch.int32)), ValueError, "CUDA device"),
+], ids=["g-f32", "idx-int64", "g-strided", "idx-length", "cpu-tensors"])
+def test_scatter_wrapper_refuses_what_the_kernel_does_not_take(args, error,
+                                                               match):
+    with pytest.raises(error, match=match):
+        scatter._check_kernel_args(num_rows=10, **args)
+
+
+def test_scatter_library_builds_beside_the_others():
+    assert set(build._SIGNATURES["scatter"]) == {
+        "gs_scatter_keys", "gs_scatter_rows", "gs_scatter_work",
+        "gs_error_string"}
+    args, restype = build._SIGNATURES["scatter"]["gs_scatter_rows"]
+    assert len(args) == 12 and restype is ctypes.c_int
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_scatter_rows_kernel_equals_plain_on_card(case):
+    """The kernel against the plain version on the card and on the CPU,
+    bit for bit; one launch."""
+    dev = _card()
+    g, idx, m = _scatter_rows_case(case, seed=1)
+    before = agg.LAUNCHES["scatter_rows"]
+    got = scatter.scatter_rows(g.to(dev), idx.to(dev), m)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["scatter_rows"] == before + 1
+    assert torch.equal(got, scatter.scatter_rows_plain(g.to(dev),
+                                                       idx.to(dev), m))
+    assert torch.equal(got.cpu(), scatter.scatter_rows_plain(g, idx, m))
+
+
+@pytest.mark.gpu
+def test_scatter_rows_kernel_takes_an_odd_address_on_card():
+    """An output gradient that starts 2 bytes into its buffer takes the
+    16-bit lanes."""
+    dev = _card()
+    g, idx, m = _scatter_rows_case("hub128", seed=2)
+    buf = torch.zeros(g.numel() + 1, dtype=torch.bfloat16, device=dev)
+    view = buf[1:].view(g.shape)
+    view.copy_(g.to(dev))
+    assert view.data_ptr() % 4 == 2
+    got = scatter.scatter_rows_kernel(view, idx.to(dev), m)
+    assert torch.equal(got.cpu(), scatter.scatter_rows_plain(g, idx, m))
+
+
+# ------------------------------------------------------------ bf16 backwards
+#
+# A bfloat16 backward rounds each contribution to bfloat16 and adds a row's
+# contributions one at a time in index order, each add rounded to bfloat16
+# (ops/scatter.py: JAX's order; tests/test_torch_bf16.py holds it against
+# the JAX package bit for bit).  The scatter_rows kernel keeps that order,
+# so each bfloat16 backward on the card equals the same backward on the
+# CPU (the plain versions) bit for bit, hub rows included, where a row of
+# thousands of contributions stagnates far from its float64 sum (printed).
+
+HUB = dict(u=1500, s=11, m=300, d=64)
+
+
+def _hub_case(seed=0):
+    """Slots 0-6 of every row point at row 0: with the mask's 70%, row 0
+    takes about 7,350 contributions."""
+    rng = np.random.RandomState(seed)
+    embed = rng.randn(HUB["m"], HUB["d"]).astype(np.float32)
+    idx = rng.randint(0, HUB["m"], (HUB["u"], HUB["s"])).astype(np.int32)
+    idx[:, :7] = 0
+    mask = (rng.rand(HUB["u"], HUB["s"]) < 0.7).astype(np.float32)
+    return embed, idx, mask
+
+
+def _scatter_case(case, seed):
+    return _hub_case(seed) if case == "hub" else _case(case, seed=seed)
+
+
+def _sequential_scatter(terms, idx, m):
+    """The bfloat16 scatter as a loop over the contributions in index
+    order, each add rounded to bfloat16."""
+    out = torch.zeros(m, terms.shape[1], dtype=torch.bfloat16)
+    for j, r in enumerate(idx.reshape(-1).tolist()):
+        out[r] = out[r] + terms[j]
+    return out
+
+
+def _report(what, grad, idx, terms, m):
+    """The largest deviation of ``grad`` from the float64 sum of ``terms``,
+    relative to that sum's largest magnitude, at the row with the most
+    nonzero contributions; returns that row's contribution count."""
+    idx = idx.reshape(-1).long().cpu()
+    terms = terms.double().cpu()
+    exact = torch.zeros(m, terms.shape[1], dtype=torch.float64)
+    exact.index_add_(0, idx, terms)
+    counts = torch.bincount(idx[(terms != 0).any(dim=1)], minlength=m)
+    hub = int(counts.argmax())
+    dev = float((grad.double().cpu()[hub] - exact[hub]).abs().max()
+                / exact[hub].abs().max().clamp_min(1e-30))
+    print(f"{what}: row {hub}, {int(counts[hub])} nonzero contributions, "
+          f"lies {dev:.3e} of its largest |sum| from the float64 sum")
+    return int(counts[hub])
+
+
+def _mean_terms(g, mask):
+    """The bfloat16 contributions of the masked mean's backward, [U*S, D]:
+    slot s of row u adds g[u] * bf16(mask[u, s] / max(sum mask[u], 1))."""
+    w = (mask / mask.sum(1, keepdim=True).clamp_min(1.0)).to(g.dtype)
+    return (g[:, None, :] * w[:, :, None]).reshape(-1, g.shape[1])
+
+
+def _max_terms(g, embed, idx, mask):
+    """The bfloat16 contributions of the masked max's backward, [U*S, D]:
+    g split equally among the valid slots equal to the output."""
+    out = agg.max_aggregate_plain(embed, idx, mask)
+    is_max = ((embed[idx.long()] == out[:, None, :])
+              & (mask[..., None] > 0)).to(g.dtype)
+    denom = is_max.sum(1, keepdim=True).clamp_min(1.0)
+    return (g[:, None, :] * is_max / denom).reshape(-1, g.shape[1])
+
+
+def _bf16_grad(fn, embed, loss_of):
+    leaf = embed.clone().requires_grad_(True)
+    loss_of(fn, leaf).backward()
+    return leaf.grad
+
+
+def _card_and_cpu(fn, embed, args, g):
+    """The bfloat16 gradient of sum(fn(embed, *args) * g) on the card (the
+    kernels) and from CPU copies of the same inputs (the plain versions);
+    the card's run launches scatter_rows once."""
+    grads = []
+    for dev in (embed.device, torch.device("cpu")):
+        before = agg.LAUNCHES["scatter_rows"]
+        grads.append(_bf16_grad(
+            fn, embed.to(dev), lambda f, leaf: (f(leaf, *(
+                a.to(dev) for a in args)).float() * g.to(dev).float()
+            ).sum()))
+        assert agg.LAUNCHES["scatter_rows"] == before + int(dev.type
+                                                            == "cuda")
+    assert grads[0].dtype == torch.bfloat16
+    assert torch.equal(grads[0].cpu(), grads[1])
+    return grads[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "empty_rows", "many_slots",
+                                  "hub"])
+def test_gather_mean_backward_bf16_on_card(case):
+    dev = _card()
+    embed, idx, mask = _scatter_case(case, seed=2)
+    e = torch.from_numpy(embed).to(dev, torch.bfloat16)
+    i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
+    g = torch.randn(idx.shape[0], embed.shape[1],
+                    generator=torch.Generator().manual_seed(3)).to(
+                        dev, torch.bfloat16)
+    grad = _card_and_cpu(agg.mean_aggregate, e, (i, m), g)
+    n = _report(f"gather_mean bf16 backward {case}", grad, i,
+                _mean_terms(g, m), e.shape[0])
+    assert case != "hub" or n >= 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "random", "hub"])
+def test_gather_max_backward_bf16_on_card(case):
+    """"ties" duplicates rows so that 2 and 3 slots tie (and relu zeros
+    tie everywhere)."""
+    dev = _card()
+    embed, idx, mask = _scatter_case("random" if case == "ties" else case,
+                                     seed=4)
+    if case == "ties":
+        embed[1::3] = embed[0::3][:len(embed[1::3])]
+        embed[2::5] = embed[0]
+        embed = np.maximum(embed, 0.0)
+    e = torch.from_numpy(embed).to(dev, torch.bfloat16)
+    i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
+    g = torch.randn(idx.shape[0], embed.shape[1],
+                    generator=torch.Generator().manual_seed(5)).to(
+                        dev, torch.bfloat16)
+    before = dict(agg.LAUNCHES)
+    grad = _card_and_cpu(agg.max_aggregate, e, (i, m), g)
+    assert agg.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    n = _report(f"gather_max bf16 backward {case}", grad, i,
+                _max_terms(g, e, i, m), e.shape[0])
+    assert case != "hub" or n >= 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["microbench", "features602", "hub"])
+def test_gather_rows_backward_bf16_on_card(case):
+    dev = _card()
+    if case == "hub":
+        rng = np.random.RandomState(6)
+        table = rng.randn(300, 128).astype(np.float32)
+        idx = rng.randint(0, 300, 4000).astype(np.int32)
+        idx[:1500] = 0
+    else:
+        table, idx = _gather_case(case, seed=2)
+    t = torch.from_numpy(table).to(dev, torch.bfloat16)
+    i = torch.from_numpy(idx).to(dev)
+    g = torch.randn(len(idx), table.shape[1],
+                    generator=torch.Generator().manual_seed(3)).to(
+                        dev, torch.bfloat16)
+    grad = _card_and_cpu(gather.gather_rows, t, (i,), g)
+    n = _report(f"gather_rows bf16 backward {case}", grad, i, g,
+                t.shape[0])
+    assert case != "hub" or n >= 1000
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ragged", "tiny_b"])
+def test_pair_scores_gradient_bf16_on_card(case):
+    """PairScores' analytic backward in bf16 against autograd through the
+    plain version: both compute in float32 and round once, so within 2
+    bf16 ulps plus 1e-5 of the gradient's largest magnitude (cancelling
+    sums near 0)."""
+    dev = _card()
+    emb, t = _score_case(case, seed=1)
+    e = torch.from_numpy(emb).to(dev, torch.bfloat16)
+    tr = torch.from_numpy(t).to(dev)
+    g = torch.randn(len(t), emb.shape[0],
+                    generator=torch.Generator().manual_seed(4)).to(
+                        dev, torch.bfloat16)
+    grads = [_bf16_grad(fn, e, lambda f, leaf: (f(leaf, tr).float()
+                                                 * g.float()).sum())
+             for fn in (sddmm.pair_scores, sddmm.dense_pair_scores)]
+    assert grads[0].dtype == torch.bfloat16
+    _assert_close(grads[0], grads[1],
+                  bf16_atol=1e-5 * float(grads[1].float().abs().max()))
+
+
+@pytest.mark.parametrize("kind", ["mean", "max", "rows"])
+def test_bf16_backward_within_the_rounding_bound_on_the_cpu(kind):
+    """The CPU's bfloat16 backwards (the Functions' plain versions) on the
+    hub case equal the contributions added in index order in bfloat16,
+    row by row (a loop), so they keep to the rounding bound of such a sum:
+    an element of a row with n contributions within (n + 1) 2^-8 sum|term|
+    of the float64 sum."""
+    embed, idx, mask = _hub_case(seed=7)
+    e = torch.from_numpy(embed).bfloat16()
+    i, m = torch.from_numpy(idx), torch.from_numpy(mask)
+    if kind == "rows":
+        g = torch.randn(idx.size, embed.shape[1],
+                        generator=torch.Generator().manual_seed(8)
+                        ).bfloat16()
+        grad = _bf16_grad(gather.gather_rows, e, lambda fn, leaf: (
+            fn(leaf, i.reshape(-1)).float() * g.float()).sum())
+        terms = g
+    else:
+        g = torch.randn(idx.shape[0], embed.shape[1],
+                        generator=torch.Generator().manual_seed(8)
+                        ).bfloat16()
+        fn = agg.mean_aggregate if kind == "mean" else agg.max_aggregate
+        grad = _bf16_grad(fn, e, lambda fn, leaf: (
+            fn(leaf, i, m).float() * g.float()).sum())
+        terms = (_mean_terms(g, m) if kind == "mean"
+                 else _max_terms(g, e, i, m))
+    assert torch.equal(grad, _sequential_scatter(terms, i, e.shape[0]))
+    flat = i.reshape(-1).long()
+    exact = torch.zeros(grad.shape, dtype=torch.float64).index_add_(
+        0, flat, terms.double())
+    absum = torch.zeros_like(exact).index_add_(0, flat, terms.double().abs())
+    n = torch.bincount(flat, minlength=e.shape[0]).double()[:, None]
+    assert ((grad.double() - exact).abs()
+            <= (n + 1) * 2.0**-8 * absum).all()
+    assert _report(f"{kind} bf16 on the CPU", grad, i, terms,
+                   e.shape[0]) >= 1000
