@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
 
 1. Build the kernels from graphsage_torch/csrc with nvcc, one process per
    source, all at once, and the native host engine (csrc/gs_native.cpp)
-   with g++ beside them (build seconds and nvcc's register report printed).
+   with g++ beside them (build seconds and nvcc's register report printed);
+   time one warp's chain of dependent bfloat16 adds (the latency that
+   bounds a long row of the scatter, ADD_NS).
 2. A small graph through the kernels against a float64 numpy oracle of the
    reference semantics (MEAN/MAX x gcn).
 3. Serving at full width: the 100,000-node, 1,000,000-edge power-law graph
@@ -238,6 +240,9 @@ SCORES_BF16_ATOL = 1e-5
 # update differs by bfloat16 roundings; the bars the CPU tests hold the
 # port's bfloat16 step to against the JAX package's
 BF16_LOSS_RTOL, BF16_UPDATE_RTOL = 1e-2, 2e-2
+# ns of one dependent bfloat16 add on the card (add_latency, phase 1): the
+# chain bound of a scatter_rows row
+ADD_NS = 0.0
 
 
 def log(*args) -> None:
@@ -440,8 +445,8 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
     log(f"  profile: device busy {busy:.6f} ms of {what} "
         f"{wall_ms:.6f} (idle share {1 - busy / wall_ms:.4f}); by kernel:")
     ours = ("gather_reduce_kernel", "pair_scores_kernel",
-            "gather_rows_kernel", "scatter_keys_kernel", "row_starts_kernel",
-            "scatter_rows_kernel", "scatter_long_kernel")
+            "gather_rows_kernel", "count_kernel", "place_kernel",
+            "sum_kernel")
     for rank, (t, key, count) in enumerate(sorted(rows, reverse=True)):
         if rank < top or any(name in key for name in ours):
             log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
@@ -951,13 +956,39 @@ def on_cpu(fn, *args):
                 for a in args))
 
 
+def add_latency(dev: torch.device) -> float:
+    """ns of one dependent bfloat16 add on this card: one warp's chain of
+    2**20 add.rn.bf16x2, timed by clock64 and %globaltimer
+    (gs_scatter_add_latency, csrc/scatter.cu), the second of two calls."""
+    lib = build.load_library("scatter")
+    one = torch.ones(2, dtype=torch.bfloat16).view(torch.int32).item()
+    inp = torch.tensor([0, one], dtype=torch.int32, device=dev)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    n = 1 << 20
+    for _ in range(2):
+        rc = lib.gs_scatter_add_latency(
+            dev.index or 0, inp.data_ptr(), out.data_ptr(), n,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"gs_scatter_add_latency: CUDA error {rc}")
+    torch.cuda.synchronize()
+    cycles, ns, _ = out.tolist()
+    log(f"bf16 add latency: a chain of {n} dependent add.rn.bf16x2 in "
+        f"{cycles} cycles, {ns} ns: {cycles / n:.4f} cycles, {ns / n:.6f} ns "
+        f"an add (SM clock {cycles / ns:.4f} GHz)")
+    return ns / n
+
+
 def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
                 launches: int) -> dict:
     """scatter_rows against its plain version on the card and on the CPU
     (bit for bit: both add in JAX's order), and its kernel row: the bound
-    reads the nonzero contributions, the ids and writes the output once;
-    the library call is index_add_ of the same rows (bfloat16 atomics, in
-    another order), the plain version the rank-by-rank adds on the card."""
+    is the larger of the bytes (g read once, since the zero test reads
+    every row, the ids, the output written once) over the HBM rate and the
+    chain of the longest row's dependent adds at ADD_NS each (bound_by
+    "operations"); the library call is index_add_ of the same rows
+    (bfloat16 atomics, in another order), the plain version the
+    rank-by-rank adds on the card."""
     g, idx = g.contiguous(), idx.reshape(-1).int().contiguous()
     got = scatter.scatter_rows_kernel(g, idx, m)
     torch.cuda.synchronize()
@@ -967,7 +998,9 @@ def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
     nonzero = (g != 0).any(dim=1)
     chain = int(torch.bincount(idx[nonzero].long(), minlength=m).max())
     j, d = g.shape
-    nbytes = int(nonzero.sum()) * d * 2 + j * 4 + m * d * 2
+    nbytes = j * d * 2 + j * 4 + m * d * 2
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    chain_ms = chain * ADD_NS / 1e6
     long_idx = idx.long()
     row = {
         "name": f"scatter_rows ({label})",
@@ -982,15 +1015,17 @@ def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
                                                 0, long_idx, g), reps=20),
         "plain_ms": cuda_ms(lambda: scatter.scatter_rows_plain(g, idx, m),
                             reps=2, warmup=1),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "bound_ms": max(bytes_ms, chain_ms),
+        "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
+        "bytes_ms": bytes_ms,
+        "chain_ms": chain_ms,
     }
     log(f"kernel {row['name']}: g {tuple(g.shape)} {g.dtype} into [{m}, "
-        f"{d}], {int(nonzero.sum())} nonzero rows, the longest row "
-        f"{chain} adds, {nbytes} bytes; the whole call (keys, torch.sort, "
-        f"row starts, ordered sums) {timing_note(row)} [index_add_, "
-        f"bfloat16 atomics]; equal to the plain version on the card and on "
-        f"the CPU")
+        f"{d}], {int(nonzero.sum())} nonzero rows, {nbytes} bytes "
+        f"({bytes_ms:.6f} ms), the longest row {chain} adds ({chain_ms:.6f} "
+        f"ms at {ADD_NS:.6f} ns an add); the whole call (memset, count, "
+        f"place, sum) {timing_note(row)} [index_add_, bfloat16 atomics]; "
+        f"equal to the plain version on the card and on the CPU")
     return row
 
 
@@ -2020,6 +2055,8 @@ def run(dev: torch.device) -> int:
         f"{time.perf_counter() - t0:.3f} s")
     smi = nvidia_smi()
     log(f"card: {smi}")
+    global ADD_NS
+    ADD_NS = add_latency(dev)
 
     small_graph_check(dev)
     phase_done("phases 1-2 (build, small graph)")

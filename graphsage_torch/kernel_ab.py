@@ -1,7 +1,9 @@
 """Time two trees' kernels on one card, in turns: the row gather, the
-gather-reduce (mean, max) and the pair-score block.
+gather-reduce (mean, max), the pair-score block and the ordered bfloat16
+scatter-add.
 
-    python -m graphsage_torch.kernel_ab --baseline DIR [--out FILE]
+    python -m graphsage_torch.kernel_ab --baseline DIR [--match TEXT]
+                                        [--out FILE]
 
 DIR holds another tree of this repository (for example ``git archive`` of
 an earlier commit, unpacked under ``build/``).  The script makes the inputs
@@ -12,8 +14,8 @@ wrappers) and times every row's shape: ``device_ms`` (the kernel's device
 time per launch, ``graphsage_torch.microbench.device_ms``), ``ms`` (CUDA
 events around back-to-back calls of the wrapper) and ``host_us`` (the
 wrapper's host time per call).  It prints one JSON line per row with the
-four turns and their means, and the card's name and power limit.  Needs a
-card.
+four turns and their means, and the card's name and power limit.
+``--match`` times only the rows whose name holds TEXT.  Needs a card.
 
 The shapes are the rows of PERF.md's kernel table.  The index tables come
 from the 100,000-node, 1,000,000-edge power-law graph (``synthetic_power_law``,
@@ -23,7 +25,12 @@ refresh-like table of 10 sampled neighbours, self masked
 ids at the main path's sizes, the score blocks uniform random targets at
 theirs (the ragged block with zero rows and a zero target, as
 ``chip_smoke.py`` has it); embedding values are random (they do not move
-the time).
+the time).  The ``scatter_rows`` rows (``scatter_rows_kernel(g, idx,
+num_rows)`` of each tree: the whole call) take the main path's six shapes
+with the refresh-like table's ids, flattened, cut to J and taken mod the
+row count, so that they carry the graph's hubs (each row prints its
+longest chain); the contributions at masked slots are all-zero, as the
+sampler's padding makes them.
 """
 
 from __future__ import annotations
@@ -77,6 +84,17 @@ ROWS = {
                                                       100, 0),
                                            "scores_ragged"),
 }
+# scatter_rows: name -> (J contributions, rows), width HIDDEN, bfloat16
+SCATTER_ROWS = {
+    "scatter_rows cached (e) layer-1 backward": (720_896, N),
+    "scatter_rows cached (h), (i) layer-1 backward": (360_448, N),
+    "scatter_rows dense layer 1 backward": (495_616, N),
+    "scatter_rows dense layer 2 backward": (45_056, 45_056),
+    "scatter_rows compact (g) layer 1 backward": (90_112, 32_768),
+    "scatter_rows compact (g) layer 2 backward": (11_264, 8192),
+}
+for _name, (_j, _m) in SCATTER_ROWS.items():
+    ROWS[_name] = ("scatter", (_m, HIDDEN, "bfloat16", HIDDEN, 0), _name)
 
 
 def make_inputs(path: Path) -> None:
@@ -108,9 +126,18 @@ def make_inputs(path: Path) -> None:
             t[0] = zero[0]                # a target of zero norm
         return torch.from_numpy(t), torch.tensor(zero, dtype=torch.long)
 
+    refresh_idx, refresh_mask = slots(FANOUT, 5)
+    flat_idx, flat_mask = refresh_idx.reshape(-1), refresh_mask.reshape(-1)
+    scatter_ids = {}
+    for name, (j, m) in SCATTER_ROWS.items():
+        ids = (flat_idx[:j] % m).int()
+        keep = flat_mask[:j] > 0
+        chain = int(torch.bincount(ids[keep].long(), minlength=m).max())
+        scatter_ids[name] = (ids, keep, chain)
     torch.save({
         "serving": slots(WIDTH, 99),
-        "refresh": slots(FANOUT, 5),
+        "refresh": (refresh_idx, refresh_mask),
+        **scatter_ids,
         "layer1": uniform(32768, (8192, 11)),
         "layer2": uniform(8192, (1024, 11)),
         "microbench": uniform(N, (45056 * 11,)),
@@ -123,13 +150,15 @@ def make_inputs(path: Path) -> None:
     }, path)
 
 
-def worker(tree: str, inputs: str) -> None:
-    """Time every row with the kernels of ``tree``; print a JSON object."""
+def worker(tree: str, inputs: str, match: str | None) -> None:
+    """Time every row (whose name holds ``match``) with the kernels of
+    ``tree``; print a JSON object.  A scatter row's device time is every
+    kernel of the call."""
     sys.path[0] = os.path.abspath(tree)  # in place of this file's directory
     import torch
 
     from graphsage_torch.ops import aggregate as agg
-    from graphsage_torch.ops import gather, sddmm
+    from graphsage_torch.ops import gather, scatter, sddmm
 
     # this tree's timing helpers, whichever tree the kernels come from
     spec = importlib.util.spec_from_file_location(
@@ -138,15 +167,27 @@ def worker(tree: str, inputs: str) -> None:
     spec.loader.exec_module(timing)
 
     dev = torch.device("cuda")
-    tables = {key: tuple(t.to(dev) for t in value)
+    tables = {key: tuple(t.to(dev) if isinstance(t, torch.Tensor) else t
+                         for t in value)
               for key, value in torch.load(inputs).items()}
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for name, (kind, (m, d, dtype, stride, offset), key) in ROWS.items():
-        base = torch.randn((m, stride), generator=gen, device=dev).to(
-            getattr(torch, dtype))
-        table = base[:, offset:offset + d]
-        idx, mask = tables[key]
+        if match and match not in name:
+            continue
+        if kind == "scatter":            # g [J, d], zero at masked slots
+            idx, keep, _ = tables[key]
+            base = torch.randn((idx.shape[0], d), generator=gen,
+                               device=dev).to(getattr(torch, dtype))
+            base[~keep] = 0.0
+            table = base
+            fn, symbol = (lambda: scatter.scatter_rows_kernel(table, idx, m),
+                          None)
+        else:
+            base = torch.randn((m, stride), generator=gen, device=dev).to(
+                getattr(torch, dtype))
+            table = base[:, offset:offset + d]
+            idx, mask = tables[key]
         if kind == "scores":             # (target rows, zero rows)
             table[mask] = 0.0
             fn, symbol = (lambda: sddmm.pair_scores_kernel(table, idx),
@@ -154,7 +195,7 @@ def worker(tree: str, inputs: str) -> None:
         elif kind == "rows":
             fn, symbol = (lambda: gather.gather_rows_kernel(table, idx),
                           "gather_rows_kernel")
-        else:
+        elif kind != "scatter":
             op = agg.mean_aggregate if kind == "mean" else agg.max_aggregate
             fn, symbol = (lambda: op(table, idx, mask), "gather_reduce_kernel")
         with torch.no_grad():
@@ -169,13 +210,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", required=True,
                     help="root of the tree to compare with")
+    ap.add_argument("--match", default=None,
+                    help="time only the rows whose name holds this text")
     ap.add_argument("--out", default=None,
                     help="also write the rows as a JSON list to this file")
     ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--inputs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.worker is not None:
-        worker(args.worker, args.inputs)
+        worker(args.worker, args.inputs, args.match)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -189,15 +232,21 @@ def main(argv=None) -> int:
         tree = args.baseline if label == "baseline" else str(here)
         proc = subprocess.run(
             [sys.executable, __file__, "--baseline", args.baseline,
-             "--worker", tree, "--inputs", str(inputs)],
+             "--worker", tree, "--inputs", str(inputs)]
+            + (["--match", args.match] if args.match else []),
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"worker ({label}, {tree}) failed:\n"
                              f"{proc.stdout}\n{proc.stderr}")
         turns.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+    chains = torch.load(inputs)
     rows = []
     for name in ROWS:
+        if args.match and args.match not in name:
+            continue
         row = {"row": name}
+        if name in SCATTER_ROWS:
+            row["longest_chain"] = chains[name][2]
         for metric in ("device_ms", "ms", "host_us"):
             values = [(label, t[name][metric]) for label, t in turns]
             row[metric] = [v for _, v in values]

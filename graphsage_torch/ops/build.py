@@ -54,17 +54,18 @@ _SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
 _ROWS_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
               ctypes.c_int, ctypes.c_void_p]
-# scatter keys: (device, g, idx, keys, J, D, M, stream)
-_KEYS_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-              ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-              ctypes.c_void_p]
-# scatter rows: (device, g, sorted_keys, order, starts, work, out, J, D, M,
-#                vec, stream); work: (J, D, vec) -> int32 scratch length
+# scatter: (device, g, idx, scratch, scratch_ints, out, J, D, M, unit,
+#           group, vec, k_long, long_blocks, long_smem, stream)
 _SCATTER_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                 ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, ctypes.c_void_p]
-_WORK_ARGS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+# scratch: (J, M, k_long) -> int32 count; add latency: (device, in, out, n,
+# stream)
+_SCRATCH_ARGS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+_LATENCY_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                 ctypes.c_int64, ctypes.c_void_p]
 _ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
 _SIGNATURES = {
     "aggregate": {
@@ -81,9 +82,9 @@ _SIGNATURES = {
         "gs_error_string": _ERROR_STRING,
     },
     "scatter": {
-        "gs_scatter_keys": (_KEYS_ARGS, ctypes.c_int),
         "gs_scatter_rows": (_SCATTER_ARGS, ctypes.c_int),
-        "gs_scatter_work": (_WORK_ARGS, ctypes.c_int64),
+        "gs_scatter_scratch": (_SCRATCH_ARGS, ctypes.c_int64),
+        "gs_scatter_add_latency": (_LATENCY_ARGS, ctypes.c_int),
         "gs_error_string": _ERROR_STRING,
     },
 }

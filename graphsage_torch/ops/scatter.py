@@ -18,7 +18,13 @@ bfloat16 scatter keeps JAX's order on both devices:
   rank within their row, one elementwise bfloat16 add a rank.
 - ``scatter_rows_kernel``: the hand-written CUDA kernel
   (``graphsage_torch/csrc/scatter.cu``), bfloat16 CUDA tensors only; equal
-  to the plain version bit for bit.
+  to the plain version bit for bit.  One call is one scratch tensor, one
+  output and one C call: a memset and three launches, a counting sort by
+  row of its own (count the nonzero contributions of each row, place each
+  at its row's segment in runs of index order, sort each segment where it
+  is summed: in registers for a row of at most 256, by its runs for a
+  longer one) and each row's chain of adds, in the launch plan of
+  :func:`scatter_plan`.
 - ``scatter_rows``: float32 (any dtype but bfloat16) takes ``index_add_``
   on both devices (atomics on the card: the order moves only the last bits
   there, and the float32 paths keep what earlier measurements timed);
@@ -36,10 +42,75 @@ send many such rows to one id.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from graphsage_torch.ops import build
-from graphsage_torch.ops.aggregate import _INT_MAX, LAUNCHES
+from graphsage_torch.ops.aggregate import _INT_MAX, LAUNCHES, widest_unit
+
+# What gs_scatter_rows (csrc/scatter.cu) takes: a long row is one of more
+# than k_long <= MAX_K_LONG contributions; a long block's ring has 2 to
+# MAX_SLOTS slots of SLOT_ROWS contributions of 32 min(vec, 2) columns in
+# at most MAX_LONG_SMEM bytes, which also hold its sort's window (a start
+# and a length a place block); the scratch has HEADER int32 before the
+# rows' counts.
+MAX_K_LONG, SLOT_ROWS, MAX_SLOTS = 256, 64, 64
+MAX_LONG_SMEM, HEADER = 200 * 1024, 4
+# contributions a place block takes: a long row's sort orders its runs, one
+# a place block, in windows of long_smem / 8 place blocks
+PLACE_BLOCK = 256
+# the plan's choices: rows of more than K_LONG contributions take a block
+# (K_LONG <= MAX_K_LONG / 2 at 8 columns a lane);
+# LONG_BLOCKS_MAX of them (two a streaming multiprocessor of the H100) take
+# the long list; a long block's ring and sort window, LONG_SMEM bytes,
+# leave room for four blocks a multiprocessor (the short rows' warps)
+K_LONG, LONG_BLOCKS_MAX, LONG_SMEM = 64, 264, 48 * 1024
+
+
+class ScatterPlan(NamedTuple):
+    unit: int         # count pass: bytes a lane loads (2, 4, 8 or 16)
+    group: int        # count pass: lanes a contribution row
+    vec: int          # sum pass: bfloat16 columns a lane (1, 2, 4 or 8)
+    k_long: int       # a row of more contributions takes a block
+    long_blocks: int  # blocks that take the long list
+    long_smem: int    # a long block's ring and sort window, bytes
+    scratch: int      # int32 of scratch
+
+
+def scratch_ints(j: int, m: int, k_long: int) -> int:
+    """The int32 scratch of a call (``gs_scatter_scratch``): the header,
+    each row's count, cursor and segment, the long list, and each
+    contribution's key, position, run mark and place in a second order."""
+    return HEADER + 3 * m + j // (k_long + 1) + 4 * j
+
+
+@functools.lru_cache(maxsize=256)
+def scatter_plan(j: int, d: int, m: int, g_mod16: int,
+                 out_mod16: int) -> ScatterPlan:
+    """The launch plan of ``gs_scatter_rows`` for g [j, d] at ``g_mod16``
+    (its address mod 16) into [m, d] at ``out_mod16``.
+
+    The count pass loads the widest unit that divides g's address and its
+    row (16 bytes at width 128) with a power-of-two group of lanes a row
+    (16 at width 128, two rows a warp).  The sum pass gives a short row 16
+    lanes of 8 columns (four bf16x2 chains, two rows a warp) at widths 72
+    to 128 where 16-byte loads fit, else a warp whose lanes take the most
+    columns, up to 4, that divide the width and both addresses without
+    leaving lanes of a 32-lane chunk idle."""
+    unit = widest_unit(2, g_mod16, 2 * d)
+    group = min(32, 1 << max(0, (2 * d // unit - 1).bit_length()))
+    cols = widest_unit(2, g_mod16, 2 * d, out_mod16) // 2
+    if cols == 8 and 64 < d <= 128:   # 16 lanes a row, two rows a warp
+        vec = 8
+    else:
+        vec = min(4, cols)
+        while vec > 1 and 32 * vec > d:
+            vec //= 2
+    long_blocks = max(1, min(j // (K_LONG + 1), LONG_BLOCKS_MAX))
+    return ScatterPlan(unit, group, vec, K_LONG, long_blocks, LONG_SMEM,
+                       scratch_ints(j, m, K_LONG))
 
 
 def scatter_rows_plain(g: torch.Tensor, idx: torch.Tensor,
@@ -82,43 +153,34 @@ def _check_kernel_args(g: torch.Tensor, idx: torch.Tensor,
         raise TypeError(f"idx must be int32, not {idx.dtype}")
     if not (g.is_contiguous() and idx.is_contiguous()):
         raise ValueError("g and idx must be contiguous")
-    if max(g.shape[1], num_rows) >= _INT_MAX:
-        raise ValueError("D and the row count must fit in 31 bits")
+    if max(*g.shape, num_rows) >= _INT_MAX:
+        raise ValueError("J, D and the row count must fit in 31 bits")
     if not (g.is_cuda and idx.device == g.device):
         raise ValueError(f"g and idx must lie on one CUDA device; got "
                          f"{g.device}, {idx.device}")
 
 
-def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor,
-                        num_rows: int) -> torch.Tensor:
+def scatter_rows_kernel(g: torch.Tensor, idx: torch.Tensor, num_rows: int,
+                        plan: ScatterPlan | None = None) -> torch.Tensor:
     """Launch the ``scatter_rows`` CUDA kernel: g [J, D] bfloat16 added into
     a zero [num_rows, D] at rows idx [J] in increasing j, equal to
-    ``scatter_rows_plain`` bit for bit.  Its passes: the keys (a row's id,
-    or num_rows for an all-zero contribution), a stable ``torch.sort`` of
-    them, the row offsets, and the ordered sums (a warp a short row, a
-    block a row of more than 256 contributions)."""
+    ``scatter_rows_plain`` bit for bit.  ``plan`` replaces
+    :func:`scatter_plan`'s (for tests of other plans)."""
     _check_kernel_args(g, idx, num_rows)
     j, d = g.shape
     out = torch.empty((num_rows, d), dtype=g.dtype, device=g.device)
     if d == 0:
         return out
+    if plan is None:
+        plan = scatter_plan(j, d, num_rows, g.data_ptr() % 16,
+                            out.data_ptr() % 16)
     lib = build.load_library("scatter")
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    keys = torch.empty(j, dtype=torch.int32, device=g.device)
-    rc = lib.gs_scatter_keys(g.device.index, g.data_ptr(), idx.data_ptr(),
-                             keys.data_ptr(), j, d, num_rows, stream)
-    if rc == 0:
-        sorted_keys, order = torch.sort(keys, stable=True)
-        starts = torch.empty(num_rows + 1, dtype=torch.int64,
-                             device=g.device)
-        vec = (2 if d % 2 == 0 and g.data_ptr() % 4 == 0
-               and out.data_ptr() % 4 == 0 else 1)
-        work = torch.empty(lib.gs_scatter_work(j, d, vec), dtype=torch.int32,
-                           device=g.device)
-        rc = lib.gs_scatter_rows(g.device.index, g.data_ptr(),
-                                 sorted_keys.data_ptr(), order.data_ptr(),
-                                 starts.data_ptr(), work.data_ptr(),
-                                 out.data_ptr(), j, d, num_rows, vec, stream)
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=g.device)
+    rc = lib.gs_scatter_rows(
+        g.device.index, g.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+        plan.scratch, out.data_ptr(), j, d, num_rows, plan.unit, plan.group,
+        plan.vec, plan.k_long, plan.long_blocks, plan.long_smem,
+        torch.cuda.current_stream(g.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scatter_rows launch failed: CUDA error {rc} "
                            f"({lib.gs_error_string(rc).decode()})")

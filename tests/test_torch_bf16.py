@@ -355,6 +355,27 @@ def _sequential_bf16(terms, rows, row):
     return acc.astype(np.float32)
 
 
+def test_bf16_scatter_equals_jax_past_the_long_row_window():
+    """``tests/test_torch_kernels.py``'s over_window case: a row of about
+    1,700 contributions spread over more place blocks than the kernel's
+    long-row sort window (``scatter.LONG_SMEM / 8`` blocks of 256), at width
+    1, among 1,576,960 mostly all-zero contributions.  ``jnp.take``'s VJP
+    in the JAX package equals the port's plain scatter bit for bit there;
+    the card's kernel is held to the plain version on that case in the card
+    tests."""
+    from graphsage_torch.ops.scatter import scatter_rows_plain
+    from tests.test_torch_kernels import _scatter_rows_case
+
+    g, idx, m = _scatter_rows_case("over_window")
+    got = scatter_rows_plain(g, idx, m)
+    _, vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(idx.numpy()), axis=0),
+                     jnp.zeros((m, 1), dtype=jnp.bfloat16))
+    want, = vjp(jnp.asarray(g.float().numpy(), dtype=jnp.bfloat16))
+    np.testing.assert_array_equal(got.view(torch.int16).numpy(),
+                                  np.asarray(want).view(np.int16))
+    assert int((idx == 0).sum()) > 256
+
+
 @pytest.mark.parametrize("kind", ["mean", "max", "rows"])
 def test_bf16_scatter_equals_jax_on_the_hub_case(kind):
     """The bfloat16 backward of the masked mean (``_pallas_mean_bwd``), the

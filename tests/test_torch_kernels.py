@@ -25,6 +25,7 @@ equal to ``index_select`` bit for bit.
 
 import ctypes
 import math
+import re
 
 import numpy as np
 import pytest
@@ -848,7 +849,24 @@ SCATTER_CASES = {
     "long602": dict(m=50, d=602, j=3000),         # 1,000 into row 0
     "long_odd": dict(m=20, d=33, j=2000),         # 667 into row 5
     "many_long": dict(m=300, d=64, j=78000),      # more rows than blocks
+    # the counting sort's passes
+    "descending": dict(m=300, d=128, j=6000),     # ids in descending order
+    "k_long_edge": dict(m=20, d=128, j=1200),     # rows of K_LONG, + 1
+    "nonfinite": dict(m=40, d=64, j=3000),        # NaN and +-inf terms
+    "all_zero": dict(m=30, d=128, j=2000),        # every term +-0
+    "one_row": dict(m=1, d=20, j=700),            # M = 1, 40-byte rows
+    "sparse": dict(m=100_000, d=8, j=300),        # long untouched runs
+    "width72": dict(m=50, d=72, j=1500),          # 9 of 16 lanes a row
+    # row 0 spread over more place blocks than a long block's sort window
+    # holds (scatter.LONG_SMEM / 8 blocks), at the narrowest width: sorted
+    # in two windows
+    "over_window": dict(m=64, d=1, j=scatter.LONG_SMEM // 8
+                        * scatter.PLACE_BLOCK + 4096),
 }
+# over_window's 1,576,960 terms take the sequential loop about 20 s on the
+# CPU: it is held against the plain version on the card only, and against
+# the JAX package's VJP scatter in tests/test_torch_bf16.py
+CPU_SCATTER_CASES = sorted(set(SCATTER_CASES) - {"over_window"})
 
 
 def _scatter_rows_case(name, seed=0):
@@ -868,10 +886,48 @@ def _scatter_rows_case(name, seed=0):
         idx[:1000] = 3
         g[::3] = 0.0
         g[1::3] = -0.0
+    if name == "descending":                      # hubs at rows 0 and 1
+        idx[::3] = 0
+        idx[1::5] = 1
+        idx = np.sort(idx)[::-1].copy()
+    if name == "k_long_edge":                     # nothing else in 0 and 1
+        idx = rng.randint(2, c["m"], c["j"]).astype(np.int32)
+        pick = rng.permutation(c["j"])
+        k = scatter.K_LONG
+        idx[pick[:k]] = 0
+        idx[pick[k:2 * k + 1]] = 1
+    if name == "nonfinite":
+        idx[::4] = 7                              # a long row of 750
+        g[8, 5] = float("nan")                    # row 7 turns NaN
+        g[100, :3] = float("inf")
+        g[200, 1:4] = float("-inf")               # inf + -inf: NaN
+        g[301, 10] = float("inf")
+        g[[302, 303, 305], 11] = float("-inf")
+    if name == "all_zero":
+        g = torch.zeros_like(g)
+        g[::2] = -0.0
+    if name == "sparse":                          # rows 7, 20007, ...
+        idx = (rng.randint(0, 5, c["j"]) * 20_000 + 7).astype(np.int32)
+    if name == "over_window":                     # mostly zero terms
+        g[rng.rand(c["j"]) < 0.995] = 0.0
+        idx[::1024] = 0
+        g[::1024] = 1.0 + torch.from_numpy(
+            rng.rand(len(idx[::1024]), 1).astype(np.float32)).bfloat16()
     return g, torch.from_numpy(idx), c["m"]
 
 
-@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def _same_bits(got, want):
+    """Bit for bit, except that any NaN matches any NaN: the NaN a bfloat16
+    add returns is the device's (a float32 NaN rounded on the CPU, the
+    card's canonical NaN)."""
+    nan = torch.isnan(got)
+    return (got.dtype == want.dtype and got.shape == want.shape
+            and torch.equal(nan, torch.isnan(want))
+            and torch.equal(got.view(torch.int16)[~nan],
+                            want.view(torch.int16)[~nan]))
+
+
+@pytest.mark.parametrize("case", CPU_SCATTER_CASES)
 def test_scatter_rows_plain_adds_in_index_order(case):
     """The plain version equals the loop that adds each contribution in
     index order, each add rounded to bfloat16, bit for bit (signs of zero
@@ -879,7 +935,7 @@ def test_scatter_rows_plain_adds_in_index_order(case):
     g, idx, m = _scatter_rows_case(case)
     got = scatter.scatter_rows_plain(g, idx, m)
     want = _sequential_scatter(g, idx, m)
-    assert torch.equal(got, want)
+    assert _same_bits(got, want)
     assert not torch.signbit(got[got == 0]).any()
 
 
@@ -911,26 +967,101 @@ def test_scatter_wrapper_refuses_what_the_kernel_does_not_take(args, error,
 
 def test_scatter_library_builds_beside_the_others():
     assert set(build._SIGNATURES["scatter"]) == {
-        "gs_scatter_keys", "gs_scatter_rows", "gs_scatter_work",
+        "gs_scatter_rows", "gs_scatter_scratch", "gs_scatter_add_latency",
         "gs_error_string"}
     args, restype = build._SIGNATURES["scatter"]["gs_scatter_rows"]
-    assert len(args) == 12 and restype is ctypes.c_int
+    assert len(args) == 16 and restype is ctypes.c_int
+
+
+def _scatter_source_constant(name):
+    """The value of ``constexpr int name = ...;`` in csrc/scatter.cu: a sum
+    of products of integers and of the file's other such constants."""
+    src = build.SOURCES["scatter"].read_text()
+    match = re.search(rf"constexpr int {name} = ([0-9A-Za-z_ *+]+);", src)
+    assert match, name
+
+    def factor(f):
+        f = f.strip()
+        return int(f) if f.isdigit() else _scatter_source_constant(f)
+
+    return sum(math.prod(factor(f) for f in term.split("*"))
+               for term in match.group(1).split("+"))
+
+
+def test_scatter_plan_limits_mirror_the_source():
+    """The limits ops/scatter.py plans against are the ones gs_scatter_rows
+    checks."""
+    assert scatter.MAX_K_LONG == _scatter_source_constant("kMaxLong")
+    assert scatter.SLOT_ROWS == _scatter_source_constant("kSlotRows")
+    assert scatter.MAX_SLOTS == _scatter_source_constant("kMaxSlots")
+    assert scatter.MAX_LONG_SMEM == _scatter_source_constant("kMaxSmem")
+    assert scatter.HEADER == _scatter_source_constant("kHeader")
+    assert scatter.PLACE_BLOCK == _scatter_source_constant("kPlace")
+
+
+PLAN_SHAPES = [  # (j, d, m, g_mod16, out_mod16)
+    (720_896, 128, 100_000, 0, 0), (495_616, 128, 100_000, 0, 0),
+    (360_448, 128, 100_000, 0, 0), (90_112, 128, 32_768, 0, 0),
+    (11_264, 128, 8192, 0, 0), (45_056, 128, 45_056, 0, 0),
+    (400, 19, 53, 0, 0), (700, 602, 500, 0, 0), (2000, 33, 20, 0, 0),
+    (78_000, 64, 300, 0, 0), (6000, 128, 300, 2, 0), (6000, 128, 300, 8, 8),
+    (500, 72, 9, 0, 0), (500, 136, 9, 0, 0), (90, 1, 7, 0, 0),
+    (0, 8, 30, 0, 0), (700, 20, 1, 0, 0), (300, 8, 100_000, 0, 0),
+    (10**8, 128, 10**6, 0, 4)]
+
+
+@pytest.mark.parametrize("j,d,m,g_mod16,out_mod16", PLAN_SHAPES)
+def test_scatter_plan_fits_the_kernel(j, d, m, g_mod16, out_mod16):
+    """The plan's unit, group, vector width, long threshold, long blocks,
+    ring and scratch against what gs_scatter_rows takes."""
+    plan = scatter.scatter_plan(j, d, m, g_mod16, out_mod16)
+    assert plan.unit in (2, 4, 8, 16)
+    assert (2 * d) % plan.unit == 0 and g_mod16 % plan.unit == 0
+    units = 2 * d // plan.unit
+    assert plan.group == min(32, 1 << max(0, (units - 1).bit_length()))
+    assert plan.vec in (1, 2, 4, 8) and d % plan.vec == 0
+    assert g_mod16 % (2 * plan.vec) == 0 and out_mod16 % (2 * plan.vec) == 0
+    if plan.vec == 8:                               # 16 lanes a row
+        assert 64 < d <= 128
+        assert 1 <= plan.k_long <= scatter.MAX_K_LONG // 2
+    else:
+        assert plan.vec == 1 or 32 * plan.vec <= d  # no idle lanes
+        assert 1 <= plan.k_long <= scatter.MAX_K_LONG
+    assert 1 <= plan.long_blocks <= max(1, j // (plan.k_long + 1))
+    assert plan.long_blocks <= 65536
+    slot = scatter.SLOT_ROWS * 32 * min(plan.vec, 2) * 2
+    assert plan.long_smem % 16 == 0
+    assert plan.long_smem <= scatter.MAX_LONG_SMEM
+    assert 2 <= plan.long_smem // slot <= scatter.MAX_SLOTS
+    assert plan.scratch == scatter.scratch_ints(j, m, plan.k_long) == (
+        scatter.HEADER + 3 * m + j // (plan.k_long + 1) + 4 * j)
+
+
+def test_scatter_plan_at_the_main_path_width():
+    """Width 128 at 16-byte addresses: 16-byte count loads, 16 lanes a row
+    (two rows a warp), in the sum pass 16 lanes of 8 columns a short row
+    (two rows a warp, four bf16x2 chains), rows of more than 64 to a block,
+    four 49,152-byte blocks a multiprocessor."""
+    plan = scatter.scatter_plan(720_896, 128, 100_000, 0, 0)
+    assert plan[:5] == (16, 16, 8, 64, 264)
+    assert plan.long_smem == 49_152
+    assert scatter.scatter_plan(11_264, 128, 8192, 0, 0).long_blocks == 173
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(SCATTER_CASES))
 def test_scatter_rows_kernel_equals_plain_on_card(case):
     """The kernel against the plain version on the card and on the CPU,
-    bit for bit; one launch."""
+    bit for bit (a NaN matches a NaN); one launch."""
     dev = _card()
     g, idx, m = _scatter_rows_case(case, seed=1)
     before = agg.LAUNCHES["scatter_rows"]
     got = scatter.scatter_rows(g.to(dev), idx.to(dev), m)
     torch.cuda.synchronize()
     assert agg.LAUNCHES["scatter_rows"] == before + 1
-    assert torch.equal(got, scatter.scatter_rows_plain(g.to(dev),
-                                                       idx.to(dev), m))
-    assert torch.equal(got.cpu(), scatter.scatter_rows_plain(g, idx, m))
+    assert _same_bits(got, scatter.scatter_rows_plain(g.to(dev), idx.to(dev),
+                                                      m))
+    assert _same_bits(got.cpu(), scatter.scatter_rows_plain(g, idx, m))
 
 
 @pytest.mark.gpu
@@ -945,6 +1076,95 @@ def test_scatter_rows_kernel_takes_an_odd_address_on_card():
     assert view.data_ptr() % 4 == 2
     got = scatter.scatter_rows_kernel(view, idx.to(dev), m)
     assert torch.equal(got.cpu(), scatter.scatter_rows_plain(g, idx, m))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["hub128", "descending", "long602",
+                                  "long_odd", "nonfinite", "one_row",
+                                  "width72", "over_window"])
+@pytest.mark.parametrize("k_long,long_smem", [
+    (1, None), (32, None), (33, None), (100, None), (256, "smallest")])
+def test_scatter_rows_other_plans_on_card(case, k_long, long_smem):
+    """Other plans than scatter_plan's: a long threshold of 1 (every row of
+    two or more takes a block), 32, 33, 100 and 256 (128 where a row takes
+    16 lanes, the most they sort), and the smallest ring (two
+    slots), whose sort window (1,024 place blocks at one column a lane,
+    2,048 at two or more) sorts over_window's long row in 7 windows: all
+    equal to the plain version."""
+    dev = _card()
+    g, idx, m = _scatter_rows_case(case, seed=3)
+    g, idx = g.to(dev), idx.to(dev)
+    j, d = g.shape
+    plan = scatter.scatter_plan(j, d, m, g.data_ptr() % 16, 0)
+    if plan.vec == 8:
+        k_long = min(k_long, scatter.MAX_K_LONG // 2)
+    smem = (plan.long_smem if long_smem is None
+            else 2 * scatter.SLOT_ROWS * 32 * min(plan.vec, 2) * 2)
+    plan = plan._replace(k_long=k_long, long_smem=smem,
+                         long_blocks=max(1, min(j // (k_long + 1), 264)),
+                         scratch=scatter.scratch_ints(j, m, k_long))
+    got = scatter.scatter_rows_kernel(g, idx, m, plan=plan)
+    assert _same_bits(got, scatter.scatter_rows_plain(g, idx, m))
+
+
+@pytest.mark.gpu
+def test_scatter_refuses_a_plan_that_does_not_fit_on_card():
+    """Each field of the plan outside what the kernel takes, and a scratch
+    one int32 short, is refused before any launch."""
+    dev = _card()
+    j, d, m = 600, 128, 40
+    g = torch.ones(j, d, dtype=torch.bfloat16, device=dev)
+    idx = torch.zeros(j, dtype=torch.int32, device=dev)
+    out = torch.empty(m, d, dtype=torch.bfloat16, device=dev)
+    plan = scatter.scatter_plan(j, d, m, g.data_ptr() % 16,
+                                out.data_ptr() % 16)
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=dev)
+    lib = build.load_library("scatter")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def call(p, ints=None):
+        return lib.gs_scatter_rows(
+            dev.index or 0, g.data_ptr(), idx.data_ptr(), scratch.data_ptr(),
+            p.scratch if ints is None else ints, out.data_ptr(), j, d, m,
+            p.unit, p.group, p.vec, p.k_long, p.long_blocks, p.long_smem,
+            stream)
+
+    assert call(plan) == 0
+    assert plan.vec == 8                         # 16 lanes a row
+    for change in (dict(unit=3), dict(unit=32), dict(group=8),
+                   dict(group=32), dict(vec=16), dict(vec=3), dict(k_long=0),
+                   dict(k_long=129), dict(k_long=257), dict(long_blocks=0),
+                   dict(long_smem=plan.long_smem + 8),
+                   dict(long_smem=4096), dict(long_smem=300 * 1024)):
+        assert call(plan._replace(**change)) != 0, change
+    assert call(plan, ints=plan.scratch - 1) != 0
+    torch.cuda.synchronize()
+    want = scatter.scatter_rows_plain(g, idx, m)
+    assert torch.equal(out, want)                # the one accepted call
+
+
+@pytest.mark.gpu
+def test_scatter_scratch_and_add_latency_on_card():
+    """The library's scratch size is the plan's; its latency helper times
+    a chain of bf16x2 adds of 1.0 from 0, which stops at 256 (256 + 1
+    rounds back to 256, ties to even)."""
+    dev = _card()
+    lib = build.load_library("scatter")
+    for j, m, k_long in ((0, 1, 256), (720_896, 100_000, 256),
+                         (1000, 3, 1), (10**8, 10**6, 100)):
+        assert lib.gs_scatter_scratch(j, m, k_long) == scatter.scratch_ints(
+            j, m, k_long)
+    one = torch.ones(2, dtype=torch.bfloat16).view(torch.int32).item()
+    inp = torch.tensor([0, one], dtype=torch.int64).to(torch.int32).to(dev)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    assert lib.gs_scatter_add_latency(dev.index or 0, inp.data_ptr(),
+                                      out.data_ptr(), 4096, stream) == 0
+    torch.cuda.synchronize()
+    cycles, ns, bits = out.tolist()
+    assert cycles > 4096 and ns > 0
+    want = torch.full((2,), 256.0, dtype=torch.bfloat16).view(torch.int32)
+    assert bits & 0xffffffff == want.item() & 0xffffffff
 
 
 # ------------------------------------------------------------ bf16 backwards
