@@ -156,6 +156,39 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    compact layers with their gradient and a scatter_rows row at its
    shape, pair_scores at (g)'s step, gather_max and its backward
    composition at (j)'s layers.
+10. Checkpoints, --config, --resume and the wedge-and-relaunch loop at full
+   width (files under build/chip_smoke_resume), through the entry points a
+   user runs:
+   (k) the headline bf16 cached configuration through the CLI
+       (powerlaw:100000:1000000, a HOCON --config giving 2 layers and
+       hidden 128, --pipeline cached --table_cap 32 --no_extend --b_sz
+       32768 --compute_dtype bfloat16, sup, 3 epochs, --export): once
+       unbroken in this process (launch counts read: gather_rows,
+       gather_mean and scatter_rows each > 0; checkpoint writes timed),
+       then under ``python -m graphsage_torch.supervise`` with a wedge
+       injected at epoch 1 (GS_TEST_WEDGE_SENTINEL): launch, exit 17,
+       restart with --resume of model_best_k_ep0_*, launch, exit 0.  Epochs
+       1-2's mean_loss and val_f1 and the exported params must equal the
+       unbroken run's bit for bit (every gradient scatter on the path is
+       scatter_rows, deterministic); so must the final params and the last
+       epoch's step losses of the CLI resumed in this process from the
+       checkpoint the supervisor resumed from.  Printed: the time to
+       recover, from the child's exit 17 to the end of the relaunched
+       child's first epoch, and its parts; the checkpoint writes' ms and
+       bytes.
+   (l) float32 compact sup on powerlaw:2000:10000, the same ways, held to
+       the float32 lockstep bars (float32 gathers' backward is index_add_,
+       whose atomics add in varying order): epochs 1-2's mean losses, the
+       last epoch's step losses and the final params.
+   (m) in a subprocess, a fetch_with_deadline behind 5 s of queued device
+       time (torch.cuda._sleep) must raise FetchDeadlineError after its 1 s
+       deadline (within 3 s), and the CLI's exit path must end the process
+       with code 17 within 10 s.  Then a real step: the CLI trains compact
+       sup at full width (powerlaw:100000:1000000, 2 layers, hidden 128)
+       with 30 s of device sleep queued inside its 20th step, between the
+       encode and the update, and a 2 s deadline; the process must end
+       with code 17, the step's loss fetch named, within 3 deadlines of
+       the sleep.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -182,9 +215,11 @@ import contextlib
 import dataclasses
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -243,6 +278,8 @@ BF16_LOSS_RTOL, BF16_UPDATE_RTOL = 1e-2, 2e-2
 # ns of one dependent bfloat16 add on the card (add_latency, phase 1): the
 # chain bound of a scatter_rows row
 ADD_NS = 0.0
+# the git-ignored directory the script's bundles and checkpoints go to
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
 
 
 def log(*args) -> None:
@@ -1961,7 +1998,8 @@ def cli_cached(dev: torch.device) -> None:
     gather_rows, every refresh through gather_mean."""
     argv = ["--dataSet", "powerlaw:2000:10000", "--pipeline", "cached",
             "--table_cap", "8", "--learn_method", "plus_unsup", "--epochs",
-            "2", "--device", str(dev), "--quiet"]
+            "2", "--device", str(dev), "--quiet", "--checkpoint_dir",
+            os.path.join(BUILD_DIR, "chip_smoke_ck", "cli_cached")]
     agg.reset_launches()
     t0 = time.perf_counter()
     trainer, _ = cli.run(argv)
@@ -1977,11 +2015,11 @@ def cli_cached(dev: torch.device) -> None:
 
 
 def cli_round_trip(dev: torch.device) -> None:
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                       "chip_smoke_bundles", "cli_plus_unsup")
+    out = os.path.join(BUILD_DIR, "chip_smoke_bundles", "cli_plus_unsup")
     argv = ["--dataSet", "powerlaw:2000:10000", "--learn_method",
             "plus_unsup", "--epochs", "1", "--export", out, "--device",
-            str(dev), "--quiet"]
+            str(dev), "--quiet", "--checkpoint_dir",
+            os.path.join(BUILD_DIR, "chip_smoke_ck", "cli_plus_unsup")]
     agg.reset_launches()
     t0 = time.perf_counter()
     trainer, best = cli.run(argv)
@@ -2017,6 +2055,434 @@ def cli_round_trip(dev: torch.device) -> None:
         f"{best['epoch']}); served table vs full_graph_embeddings max abs "
         f"error {err}; serving launches {launches}; served val micro-F1 "
         f"{f1:.6f}")
+
+
+# ------------------------------------------------------------ resume
+
+# phase 10 (k): the headline bf16 cached configuration through the CLI
+RESUME_K = ["--dataSet", f"powerlaw:{NODES}:{EDGES}", "--pipeline", "cached",
+            "--table_cap", "32", "--no_extend", "--b_sz", "32768",
+            "--compute_dtype", "bfloat16", "--learn_method", "sup",
+            "--epochs", "3", "--name", "k", "--quiet"]
+# (l): float32 compact sup on a small graph
+RESUME_L = ["--dataSet", "powerlaw:2000:10000", "--learn_method", "sup",
+            "--epochs", "3", "--name", "l", "--quiet"]
+HOCON = "setting {\n  num_layers = 2\n  hidden_emb_size = 128\n}\n"
+# (m): device time queued ahead of the guarded fetch, and its deadline
+SLEEP_S, DEADLINE_S = 5.0, 1.0
+# (m) in a real compact step through the CLI: device time queued inside
+# step STEP_WEDGE_AT, far longer than the deadline.  A kernel's first
+# launch waits for the kernels running (CUDA loads it then), so the step
+# comes late enough that its kernels (cuBLAS's picks for its bucketed
+# shapes among them) have been launched before
+STEP_SLEEP_S, STEP_DEADLINE_S, STEP_WEDGE_AT = 30.0, 2.0, 20
+STEP_WEDGE_ARGS = ["--dataSet", f"powerlaw:{NODES}:{EDGES}", "--learn_method",
+                   "sup", "--epochs", "1", "--name", "m", "--quiet"]
+
+
+def run_dirs(root: str, tag: str) -> tuple[dict, list]:
+    """A fresh checkpoint dir, metrics file and bundle dir under root/tag,
+    and the CLI flags that name them."""
+    base = os.path.join(root, tag)
+    paths = {"ck": os.path.join(base, "ck"),
+             "metrics": os.path.join(base, "metrics.jsonl"),
+             "bundle": os.path.join(base, "bundle")}
+    os.makedirs(base)
+    return paths, ["--checkpoint_dir", paths["ck"], "--metrics",
+                   paths["metrics"], "--export", paths["bundle"]]
+
+
+def read_jsonl(path: str) -> list[dict]:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def unbroken_run(argv: list, root: str, tag: str, dev: torch.device):
+    """The CLI in this process, its launches counted and its checkpoint
+    writes timed."""
+    from graphsage_torch.utils import checkpoint
+    paths, flags = run_dirs(root, tag)
+    writes = []
+    save = checkpoint.save_checkpoint
+
+    def timed_save(path, *args, **kw):
+        t0 = time.perf_counter()
+        save(path, *args, **kw)
+        writes.append(((time.perf_counter() - t0) * 1e3,
+                       os.path.getsize(path)))
+
+    agg.reset_launches()
+    t0 = time.perf_counter()
+    with patched(checkpoint, save_checkpoint=timed_save):
+        trainer, _ = cli.run(argv + flags + ["--device", str(dev)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    log(f"[resume {tag}] graphsage_torch.cli in this process: "
+        f"{time.perf_counter() - t0:.3f} s; launches {launches}; "
+        f"checkpoint writes (ms, bytes) {writes}")
+    return paths, launches, writes, trainer
+
+
+def supervised_run(argv: list, root: str, tag: str, dev: torch.device,
+                   timeout_s: float = 600.0):
+    """python -m graphsage_torch.supervise with an injected wedge at epoch 1;
+    the supervisor's event lines stamped with this process's clock as they
+    arrive.  Returns the paths and the stamped events."""
+    paths, flags = run_dirs(root, tag)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env["GS_TEST_WEDGE_SENTINEL"] = os.path.join(root, tag, "wedge")
+    cmd = [sys.executable, "-u", "-m", "graphsage_torch.supervise",
+           "--max_restarts", "2", "--log",
+           os.path.join(root, tag, "events.jsonl"), "--", *argv, *flags,
+           "--device", str(dev)]
+    events, other = [], []
+    t0 = time.perf_counter()
+    with open(os.path.join(root, tag, "stdout.txt"), "w") as out:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=out,
+                                stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        killer = threading.Timer(timeout_s, os.killpg,
+                                 (proc.pid, signal.SIGKILL))
+        killer.start()
+        try:
+            for line in proc.stderr:
+                if line.startswith("[supervisor] "):
+                    rec = json.loads(line[len("[supervisor] "):])
+                    rec["wall"] = time.time()
+                    events.append(rec)
+                else:
+                    other.append(line.rstrip())
+            rc = proc.wait()
+        finally:
+            killer.cancel()
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[resume {tag}] supervisor rc {rc}; "
+                             f"stderr tail {other[-20:]}")
+    log(f"[resume {tag}] python -m graphsage_torch.supervise: "
+        f"{seconds:.3f} s; events "
+        f"{[(e['event'], e.get('rc', e.get('resume'))) for e in events]}")
+    kinds = [e["event"] for e in events]
+    assert kinds == ["launch", "exit", "restart", "launch", "exit"], kinds
+    assert events[1]["rc"] == 17 and events[4]["rc"] == 0, events
+    name = os.path.basename(events[2]["resume"] or "")
+    assert name.startswith(f"model_best_{argv[argv.index('--name') + 1]}"
+                           "_ep0_"), events[2]
+    return paths, events
+
+
+def epoch_records(path: str) -> dict:
+    """{epoch: (mean_loss, val_f1)} of a metrics file."""
+    recs = read_jsonl(path)
+    loss = {r["epoch"]: r["mean_loss"] for r in recs if r["event"] == "epoch"}
+    f1 = {r["epoch"]: r["val_f1"] for r in recs if r["event"] == "eval"}
+    return {e: (loss[e], f1.get(e)) for e in loss}
+
+
+def bundle_params(path: str) -> dict:
+    params, _, _, meta = infer.load_bundle(path)
+    return flatten_params(params), meta
+
+
+def recovery(paths: dict, events: list) -> dict:
+    """Time to recover, from the first child's rc 17 to the end of the
+    relaunched child's first epoch, and its parts."""
+    recs = read_jsonl(paths["metrics"])
+    i = next(i for i, r in enumerate(recs) if r["event"] == "resume")
+    res, after = recs[i], recs[i + 1:]
+    base = res["wall"] - res["t"]    # this child's logger clock
+    first, second = [r for r in after if r["event"] == "epoch"][:2]
+    # the second epoch starts after the first one's evaluation records
+    second_start = max(r["t"] for r in after
+                       if r.get("epoch") == first["epoch"])
+    t17, relaunch = events[1]["wall"], events[3]["wall"]
+    epoch_end = base + first["t"]
+    parts = {"relaunch_s": relaunch - t17,
+             "process_start_s": res["ready_wall"] - relaunch,
+             "data_s": res["data_s"], "setup_s": res["setup_s"],
+             "restore_s": res["restore_s"],
+             "first_epoch_s": epoch_end - res["wall"],
+             "second_epoch_s": second["t"] - second_start}
+    parts["kernel_load_and_warmup_s"] = (parts["first_epoch_s"]
+                                         - parts["second_epoch_s"])
+    parts["total_s"] = epoch_end - t17
+    return parts
+
+
+def final_state(trainer) -> dict:
+    """A trainer's final params (flattened, on the host) and its last
+    epoch's step losses."""
+    return {"params": flatten_params(params_to_numpy(trainer.params)),
+            "losses": list(trainer.step_losses)}
+
+
+def resumed_run(argv: list, root: str, tag: str, events: list,
+                dev: torch.device) -> dict:
+    """The CLI in this process resumed from the checkpoint that the
+    supervisor's relaunch resumed from; its final state."""
+    _, flags = run_dirs(root, tag)
+    trainer, _ = cli.run(argv + flags + ["--resume", events[2]["resume"],
+                                         "--device", str(dev)])
+    return final_state(trainer)
+
+
+def resume_equal(tag: str, unbroken: dict, supervised: dict, final: dict,
+                 resumed: dict) -> None:
+    """Epochs 1-2's losses and val F1s and the exported params of the
+    supervised run, and the last epoch's step losses and the final params
+    of the resumed one, equal the unbroken run's bit for bit."""
+    a, b = epoch_records(unbroken["metrics"]), epoch_records(
+        supervised["metrics"])
+    for e in (1, 2):
+        assert a[e] == b[e], (tag, e, a[e], b[e])
+    pa, meta_a = bundle_params(unbroken["bundle"])
+    pb, meta_b = bundle_params(supervised["bundle"])
+    assert pa.keys() == pb.keys()
+    for key in pa:
+        np.testing.assert_array_equal(pb[key], pa[key], err_msg=key)
+    assert meta_a == meta_b, (meta_a, meta_b)
+    assert resumed["losses"] == final["losses"], (resumed, final)
+    assert resumed["params"].keys() == final["params"].keys()
+    for key in final["params"]:
+        np.testing.assert_array_equal(resumed["params"][key],
+                                      final["params"][key], err_msg=key)
+    log(f"[resume {tag}] epochs 1-2 (mean_loss, val_f1) equal: {a[1]}, "
+        f"{a[2]}; exported params equal bit for bit (best-val epoch "
+        f"{meta_a['epoch']}); resumed in this process: final params and "
+        f"the last epoch's {len(final['losses'])} step losses equal bit "
+        f"for bit")
+
+
+def resume_close(tag: str, unbroken: dict, supervised: dict, final: dict,
+                 resumed: dict, loss_rtol: float, param_atol: float) -> dict:
+    """Epochs 1-2's mean losses and the last epoch's step losses within
+    loss_rtol, the exported and the final params within param_atol;
+    returns the largest differences."""
+    a, b = epoch_records(unbroken["metrics"]), epoch_records(
+        supervised["metrics"])
+    pa, meta_a = bundle_params(unbroken["bundle"])
+    pb, meta_b = bundle_params(supervised["bundle"])
+    assert pa.keys() == pb.keys()
+    assert resumed["params"].keys() == final["params"].keys()
+    assert len(resumed["losses"]) == len(final["losses"])
+    diffs = {"loss_rel": max(abs(b[e][0] - a[e][0]) / abs(a[e][0])
+                             for e in (1, 2)),
+             "step_loss_rel": max(abs(r - f) / abs(f) for r, f in zip(
+                 resumed["losses"], final["losses"])),
+             "final_param_abs": max(
+                 float(np.abs(resumed["params"][k] - final["params"][k])
+                       .max()) for k in final["params"]),
+             "bundle_param_abs": max(float(np.abs(pb[k] - pa[k]).max())
+                                     for k in pa),
+             "val_f1_equal": all(a[e][1] == b[e][1] for e in (1, 2)),
+             "best_epoch": (meta_a["epoch"], meta_b["epoch"]),
+             "steps": len(final["losses"])}
+    log(f"[resume {tag}] against the unbroken run: {diffs} (loss rtol "
+        f"{loss_rtol}, params atol {param_atol})")
+    assert (diffs["loss_rel"] <= loss_rtol
+            and diffs["step_loss_rel"] <= loss_rtol
+            and diffs["final_param_abs"] <= param_atol
+            and diffs["bundle_param_abs"] <= param_atol), diffs
+    return diffs
+
+
+DEADLINE_CHILD = r"""
+import json, sys, time
+import torch
+from graphsage_torch import cli
+from graphsage_torch.utils.obs import FetchDeadlineError, fetch_with_deadline
+
+class Wedged:
+    def fit(self):
+        # load the sleep and add kernels first: CUDA loads a kernel at its
+        # first launch, and that load waits for the kernels running
+        x = torch.ones((), device="cuda")
+        torch.cuda._sleep(1000)
+        fetch_with_deadline(x + 1, timeout_s=60.0)
+        torch.cuda._sleep(int(sys.argv[1]))
+        y = x + 1
+        t0 = time.perf_counter()
+        try:
+            fetch_with_deadline(y, label="a sleeping kernel's output",
+                                timeout_s=float(sys.argv[2]))
+        except FetchDeadlineError:
+            print(json.dumps({"raised_after_s": time.perf_counter() - t0}),
+                  flush=True)
+            raise
+        raise AssertionError("the fetch returned before its deadline")
+
+cli.fit_or_exit(Wedged())
+"""
+
+
+def deadline_check() -> dict:
+    """(m): a fetch behind SLEEP_S of queued device time raises
+    FetchDeadlineError after DEADLINE_S, and the CLI's exit path ends the
+    process with code 17 soon after."""
+    cycles = 10**8
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: torch.cuda._sleep(cycles), 3)
+    cycles = int(cycles * SLEEP_S * 1e3 / ms)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", DEADLINE_CHILD, str(cycles),
+         str(DEADLINE_S)], cwd=here, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, start_new_session=True)
+    try:
+        line = proc.stdout.readline()
+        raised_wall = time.perf_counter()
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    exit_s = time.perf_counter() - raised_wall
+    err = proc.stderr.read()
+    res = {"sleep_cycles": cycles, "sleep_ms_per_1e8_cycles": ms,
+           "raised_after_s": json.loads(line)["raised_after_s"]
+           if line.startswith("{") else None,
+           "rc": rc, "exit_after_raise_s": exit_s,
+           "process_s": time.perf_counter() - t0}
+    log(f"[resume m] {json.dumps(res)}; child stderr: "
+        f"{err.strip().splitlines()[:4]}")
+    assert res["raised_after_s"] is not None, (line, err)
+    assert DEADLINE_S <= res["raised_after_s"] <= 3 * DEADLINE_S, res
+    assert rc == cli.WEDGE_EXIT and exit_s <= 10.0, res
+    return res
+
+
+STEP_WEDGE_CHILD = r"""
+import json, sys, time
+import torch
+from graphsage_torch import cli
+from graphsage_torch.train import trainer as trainer_mod
+
+cycles, at = int(sys.argv[1]), int(sys.argv[2])
+encode = trainer_mod.graphsage_apply_gathered
+update = trainer_mod.apply_gradients
+calls = {"encode": 0, "update": 0}
+
+def encode_then_sleep(*args, **kw):
+    out = encode(*args, **kw)
+    calls["encode"] += 1
+    if calls["encode"] == at:
+        # a kernel that runs far past the deadline, inside the step
+        torch.cuda._sleep(cycles)
+        print(json.dumps({"slept_at": time.time()}), flush=True)
+    return out
+
+def update_then_report(*args, **kw):
+    update(*args, **kw)
+    calls["update"] += 1
+    if calls["update"] == at:
+        # the step's launches after the sleep did not wait for it
+        print(json.dumps({"updated_at": time.time()}), flush=True)
+
+torch.cuda._sleep(1000)     # load the sleep kernel while nothing runs
+trainer_mod.graphsage_apply_gathered = encode_then_sleep
+trainer_mod.apply_gradients = update_then_report
+cli.main(sys.argv[3:])
+"""
+
+
+def step_wedge_check(ms_per_1e8_cycles: float, root: str,
+                     dev: torch.device) -> dict:
+    """(m) in a real step: the CLI's compact Trainer at full width, with
+    device sleep queued inside step STEP_WEDGE_AT, must end with code 17
+    within 3 deadlines of the sleep, having named that step's loss fetch."""
+    cycles = int(1e8 * STEP_SLEEP_S * 1e3 / ms_per_1e8_cycles)
+    _, flags = run_dirs(root, "m_step")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env["GS_FETCH_TIMEOUT_S"] = str(STEP_DEADLINE_S)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-c", STEP_WEDGE_CHILD, str(cycles),
+         str(STEP_WEDGE_AT), *STEP_WEDGE_ARGS, *flags, "--device", str(dev)],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=STEP_SLEEP_S + 120)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    ended = time.time()
+    marks = {k: v for line in out.splitlines() if line.startswith('{"')
+             for k, v in json.loads(line).items()}
+    fatal = [line for line in out.splitlines() if line.startswith("FATAL")]
+    slept = marks.get("slept_at")
+    res = {"rc": proc.returncode, "sleep_cycles": cycles,
+           "step_done_after_sleep_s": marks["updated_at"] - slept
+           if "updated_at" in marks and slept else None,
+           "exit_after_sleep_s": ended - slept if slept else None,
+           "process_s": time.perf_counter() - t0, "fatal": fatal}
+    log(f"[resume m] a real step: {json.dumps(res)}; child stderr: "
+        f"{err.strip().splitlines()[:4]}")
+    assert slept, (out, err)
+    assert res["rc"] == cli.WEDGE_EXIT, (res, err)
+    assert res["exit_after_sleep_s"] <= 3 * STEP_DEADLINE_S, res
+    assert fatal and f"step {STEP_WEDGE_AT} loss fetch" in fatal[0], res
+    return res
+
+
+def resume_phase(dev: torch.device) -> None:
+    """Phase 10: checkpoints, --config, --resume and the supervisor's
+    wedge-and-relaunch loop at full width, and the fetch deadline on real
+    device work."""
+    import shutil
+    root = os.path.join(BUILD_DIR, "chip_smoke_resume")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    conf = os.path.join(root, "k.conf")
+    with open(conf, "w") as f:
+        f.write(HOCON)
+    t0 = time.perf_counter()
+
+    # (k) the headline bf16 cached configuration
+    argv = RESUME_K + ["--config", conf]
+    unbroken, launches, writes, trainer = unbroken_run(argv, root, "k",
+                                                       dev)
+    assert trainer.mcfg.num_layers == 2 and trainer.mcfg.out_size == 128
+    for name in ("gather_rows", "gather_mean", "scatter_rows"):
+        assert launches[name] > 0, launches
+    final = final_state(trainer)
+    del trainer
+    if dev.type == "cuda":
+        # the children need the card's memory that this process caches
+        torch.cuda.empty_cache()
+    supervised, events = supervised_run(argv, root, "k_supervised", dev)
+    parts = recovery(supervised, events)
+    log(f"[resume k] time to recover (s): {json.dumps(parts)}")
+    log(f"[resume k] checkpoint write ms {[w[0] for w in writes]}, bytes "
+        f"{[w[1] for w in writes]}")
+    # every gradient scatter on this path is scatter_rows, deterministic
+    # by design, so the resumed run must equal the unbroken one exactly
+    resumed = resumed_run(argv, root, "k_resumed", events, dev)
+    resume_equal("k", unbroken, supervised, final, resumed)
+    # (l) float32 compact sup: index_add_'s atomics add in varying order
+    unbroken_l, _, _, trainer = unbroken_run(RESUME_L, root, "l", dev)
+    final = final_state(trainer)
+    del trainer
+    supervised_l, events = supervised_run(RESUME_L, root, "l_supervised",
+                                          dev)
+    resumed = resumed_run(RESUME_L, root, "l_resumed", events, dev)
+    resume_close("l", unbroken_l, supervised_l, final, resumed, LOSS_RTOL,
+                 PARAM_ATOL)
+    if dev.type == "cuda":
+        res = deadline_check()
+        step_wedge_check(res["sleep_ms_per_1e8_cycles"], root, dev)
+    log(f"[resume] phase 10 took {time.perf_counter() - t0:.3f} s")
 
 
 def main() -> int:
@@ -2141,6 +2607,10 @@ def run(dev: torch.device) -> int:
 
     rows.extend(bf16_phase(ds, train_ds, dev, phase_done))
     phase_done("phase 9 (bf16 training)")
+
+    del ds, train_ds
+    resume_phase(dev)
+    phase_done("phase 10 (checkpoints and resume)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

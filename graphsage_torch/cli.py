@@ -20,12 +20,19 @@ model shuffles each row's slots).  ``--pipeline cached``
 bundle records ``meta["lstm_hybrid"]`` so that serving runs the hybrid
 forward.  ``--compute_dtype bfloat16`` trains either pipeline in bfloat16
 with float32 master params; the ``--export`` bundle records the compute
-dtype, and ``graphsage_torch.infer`` serves it in that dtype.  Not ported
-yet, and refused with the ROADMAP item that queues them: ``--pipeline
-cached_dist|dist`` (item 16), and HOCON ``--config`` files, checkpoints on
-disk and ``--resume`` (item 8).  The dense pipeline
-(``graphsage_torch.train.dense``) is a library API, with no
-``--pipeline`` of its own, as in the JAX package.
+dtype, and ``graphsage_torch.infer`` serves it in that dtype.  The dense
+pipeline (``graphsage_torch.train.dense``) is a library API, with no
+``--pipeline`` of its own, as in the JAX package.  ``--pipeline
+cached_dist|dist`` is not ported yet and is refused (ROADMAP A item 16).
+
+Checkpoints and resume: on every val improvement the run writes
+``<--checkpoint_dir>/model_best_<name>_ep<E>_<testF1>`` (the JAX package's
+name; ``utils/checkpoint.py``'s format), and ``--resume PATH`` continues a
+run from one.  ``--config FILE`` reads a HOCON experiment file
+(``setting.num_layers``, ``setting.hidden_emb_size``; ``--num_layers`` and
+``--hidden`` override it).  When a deadline-guarded device fetch expires
+(``utils/obs.py``), the process prints ``FATAL: ...`` and exits with code
+17; ``python -m graphsage_torch.supervise`` relaunches it with ``--resume``.
 
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
         --agg_func LSTM --epochs 1
@@ -34,11 +41,19 @@ disk and ``--resume`` (item 8).  The dense pipeline
         --export bundles/hybrid
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
         --compute_dtype bfloat16 --pipeline cached --table_cap 8 --epochs 2
+    python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
+        --epochs 3 --name run --resume checkpoints/model_best_run_ep0_0.3300
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import sys
+import time
+
+# the exit code of a run whose device fetch wedged: restart and resume
+WEDGE_EXIT = 17
 
 _NOT_PORTED = {
     "cached_dist": "the sharded cached pipeline (ROADMAP A item 16)",
@@ -67,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_vali_f1", type=float, default=0)
     p.add_argument("--name", type=str, default="debug")
     p.add_argument("--config", type=str, default=None,
-                   help="HOCON experiment file (not ported yet)")
+                   help="HOCON experiment file (reference-compatible)")
     # framework flags
     p.add_argument("--pipeline", type=str, default="compact",
                    choices=["compact", "cached", "cached_dist", "dist"],
@@ -88,12 +103,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "batches instead of the reference's pair-extended "
                         "batches")
     p.add_argument("--fanout", type=int, default=10)
-    p.add_argument("--num_layers", type=int, default=2)
-    p.add_argument("--hidden", type=int, default=128)
+    p.add_argument("--num_layers", type=int, default=None,
+                   help="override config setting.num_layers (default 2)")
+    p.add_argument("--hidden", type=int, default=None,
+                   help="override config setting.hidden_emb_size (default "
+                        "128)")
     p.add_argument("--lr", type=float, default=0.7)
     p.add_argument("--clf_epochs", type=int, default=800)
+    p.add_argument("--checkpoint_dir", type=str, default="checkpoints")
     p.add_argument("--resume", type=str, default=None,
-                   help="checkpoint to resume from (not ported yet)")
+                   help="checkpoint path to resume from")
     p.add_argument("--strict_clf_eval", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="re-embed val/test each classifier epoch like the "
@@ -129,25 +148,40 @@ def run(argv=None):
         raise NotImplementedError(f"--pipeline {args.pipeline}: "
                                   f"{_NOT_PORTED[args.pipeline]} is not "
                                   f"ported yet")
-    if args.config or args.resume:
-        raise NotImplementedError("--config and --resume are not ported yet "
-                                  "(ROADMAP A item 8)")
 
     from graphsage_torch.convert import params_to_numpy
     from graphsage_torch.data import load_dataset
     from graphsage_torch.infer import export_bundle
     from graphsage_torch.models import GraphSageConfig
     from graphsage_torch.train import CachedTrainer, Trainer, TrainConfig
+    from graphsage_torch.train.trainer import _leaf_params
+    from graphsage_torch.utils.checkpoint import (checkpoint_test_f1,
+                                                  restore_checkpoint,
+                                                  save_checkpoint,
+                                                  set_generator_state)
+    from graphsage_torch.utils.config import load_config
+    ready = time.time()
+
+    num_layers, hidden = 2, 128  # reference src/experiments.conf:11-12
+    if args.config:
+        cfg = load_config(args.config)
+        num_layers = cfg.get("setting.num_layers", num_layers)
+        hidden = cfg.get("setting.hidden_emb_size", hidden)
+    if args.num_layers is not None:
+        num_layers = args.num_layers
+    if args.hidden is not None:
+        hidden = args.hidden
 
     kw = {"root": args.data_root} if args.data_root else {}
     ds = load_dataset(args.dataSet, seed=args.seed, **kw)
     if ds.synthetic_features and not args.quiet:
         print(f"NOTE: content file for {ds.name} absent; using synthesized "
               "features over the real graph")
+    data_s = time.time() - ready
 
-    mcfg = GraphSageConfig(num_layers=args.num_layers,
-                           input_size=ds.feature_dim, out_size=args.hidden,
-                           gcn=args.gcn, agg_func=args.agg_func,
+    mcfg = GraphSageConfig(num_layers=num_layers, input_size=ds.feature_dim,
+                           out_size=hidden, gcn=args.gcn,
+                           agg_func=args.agg_func,
                            compute_dtype=args.compute_dtype)
     tcfg = TrainConfig(
         learn_method=args.learn_method, unsup_loss=args.unsup_loss,
@@ -165,7 +199,21 @@ def run(argv=None):
         best["params"] = params_to_numpy(trainer.params)
         best["epoch"] = trainer.epoch
         best["test_f1"] = float(test_f1)
+        path = os.path.join(
+            args.checkpoint_dir,
+            f"model_best_{args.name}_ep{trainer.epoch}_{test_f1:.4f}")
+        try:
+            save_checkpoint(path, best["params"], trainer.epoch,
+                            trainer.max_vali_f1, trainer.rng,
+                            generator=_sampler_generator(trainer),
+                            test_f1=best["test_f1"])
+        except OSError as e:  # keep training if the write fails
+            print(f"checkpoint failed: {e}", flush=True)
+            return
+        if not args.quiet:
+            print(f"checkpointed {path}")
 
+    t0 = time.time()
     if args.pipeline == "cached":
         trainer = CachedTrainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
                                 table_cap=args.table_cap,
@@ -176,6 +224,34 @@ def run(argv=None):
         trainer = Trainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
                           device=args.device)
     trainer.max_vali_f1 = args.max_vali_f1
+    setup_s = time.time() - t0
+
+    if args.resume:
+        t0 = time.time()
+        params, epoch, best_f1, rng, gen_state = restore_checkpoint(
+            args.resume, trainer.params, with_generator_state=True)
+        generator = _sampler_generator(trainer)
+        if gen_state is not None and generator is not None:
+            # the cached pipeline's device sampler: the resumed run draws
+            # the unbroken run's samples
+            set_generator_state(generator, gen_state)
+        trainer.params = _leaf_params(params, trainer.device)
+        # the checkpoint records the epoch it was written in; training
+        # continues at the next one, and the checkpoint is the best-val
+        # snapshot until the resumed run improves on it
+        trainer.epoch = epoch + 1
+        trainer.max_vali_f1 = best_f1
+        trainer.rng = rng
+        best.update(params=params, epoch=epoch,
+                    test_f1=checkpoint_test_f1(args.resume))
+        trainer.metrics.log("resume", checkpoint=args.resume,
+                            after_epoch=epoch, best_val_f1=best_f1,
+                            ready_wall=ready, data_s=data_s,
+                            setup_s=setup_s, restore_s=time.time() - t0,
+                            wall=time.time())
+        if not args.quiet:
+            print(f"resumed from {args.resume} after epoch {epoch}, "
+                  f"best val F1 {best_f1:.4f}")
 
     if args.learn_method == "sup":
         print("GraphSage with Supervised Learning")
@@ -185,7 +261,7 @@ def run(argv=None):
     else:
         print("GraphSage with Net Unsupervised Learning")
 
-    trainer.fit()
+    fit_or_exit(trainer)
     print(f"Best validation F1: {trainer.max_vali_f1:.4f}")
     if args.export:
         meta = {"dataset": ds.name, "name": args.name,
@@ -207,6 +283,31 @@ def run(argv=None):
             print(f"exported serving bundle to {args.export} "
                   f"({meta['params']} params)")
     return trainer, best
+
+
+def _sampler_generator(trainer):
+    """The cached pipeline's device sampler generator, whose state a
+    checkpoint keeps (None for the compact pipeline, whose sampling is all
+    on the host RandomState)."""
+    return getattr(getattr(trainer, "hop", None), "generator", None)
+
+
+def fit_or_exit(trainer) -> None:
+    """``trainer.fit()``; when a guarded device fetch passes its deadline,
+    print ``FATAL: ...`` and end the process at once with
+    :data:`WEDGE_EXIT`, which the supervisor relaunches with ``--resume``.
+    ``os._exit`` skips the interpreter's teardown, which could wait on the
+    hung kernel forever; stdout is flushed first, and the metrics file is
+    closed after each record."""
+    from graphsage_torch.utils.obs import FetchDeadlineError
+
+    try:
+        trainer.fit()
+    except FetchDeadlineError as e:
+        print(f"FATAL: {e}; restart and resume from the last checkpoint",
+              flush=True)
+        sys.stderr.flush()
+        os._exit(WEDGE_EXIT)
 
 
 if __name__ == "__main__":

@@ -61,11 +61,12 @@ def _unsup_loss_from_cosines(pos_cos, pos_mask, neg_cos, neg_mask,
         neg_term = q * _masked_mean(F.logsigmoid(-neg_cos), neg_mask, 1)
         per_node = pos_term - neg_term
     elif kind == "margin":
-        big = torch.tensor(1e30, dtype=pos_cos.dtype, device=pos_cos.device)
+        # Python scalars: a tensor made from one on the card would be a
+        # host-to-device copy, which waits for the device
         pos_s = F.logsigmoid(pos_cos)
         neg_s = F.logsigmoid(neg_cos)
-        pos_min = torch.where(pos_mask > 0, pos_s, big).amin(dim=1)
-        neg_max = torch.where(neg_mask > 0, neg_s, -big).amax(dim=1)
+        pos_min = torch.where(pos_mask > 0, pos_s, 1e30).amin(dim=1)
+        neg_max = torch.where(neg_mask > 0, neg_s, -1e30).amax(dim=1)
         per_node = torch.relu(neg_max - pos_min + margin)
     else:
         raise ValueError("unsup_loss can be only 'margin' or 'normal'.")

@@ -169,8 +169,10 @@ def _upper_layers(sage: dict, h: torch.Tensor, frontiers, fanout: int,
         hr = h.reshape(-1, k + 1, h.shape[1])
         mask = frontier.mask.to(h.dtype)                       # [U, K+1]
         if agg_func == "MAX":
-            neg = torch.tensor(float("-inf"), dtype=h.dtype, device=h.device)
-            agg = torch.amax(torch.where(mask[..., None] > 0, hr, neg), dim=1)
+            # a Python scalar: a tensor made from one on the card would be
+            # a host-to-device copy, which waits for the device
+            agg = torch.amax(torch.where(mask[..., None] > 0, hr,
+                                         float("-inf")), dim=1)
             any_valid = (mask > 0).any(dim=1, keepdim=True)
             agg = torch.where(any_valid, agg, torch.zeros_like(agg))
         elif agg_func == "LSTM":

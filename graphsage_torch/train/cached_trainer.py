@@ -12,7 +12,7 @@ Port of ``graphsage_tpu/train/cached_trainer.py``.  Against the compact
 - An epoch is one leaf-cache refresh and a Python loop of steps on the
   card; the host work (shuffle, pair sampling, stacking to one bucketed U
   for the whole epoch) happens before the first step, and the epoch's
-  losses are synchronised once, at its end.
+  losses are fetched once, at its end, through ``fetch_with_deadline``.
 - Depth-L neighbourhoods are one uniform fanout-subset per node per epoch
   (or per ``refresh_every`` epochs); depths < L sample fresh per step, from
   a ``torch.Generator`` on the card seeded with ``seed + 1`` (the JAX
@@ -44,6 +44,7 @@ from graphsage_torch.train.cached import (CachedStep, _check_cached,
                                           refresh_leaf_cache,
                                           sample_cached_frontiers)
 from graphsage_torch.train.trainer import Trainer, TrainConfig, _to_device
+from graphsage_torch.utils.obs import fetch_with_deadline
 
 _PAIR_FIELDS = ("pos_q", "pos_mask", "neg_q", "neg_mask", "node_valid",
                 "target_rows")
@@ -210,8 +211,10 @@ class CachedTrainer(Trainer):
         losses = cached_epoch_reuse(
             self._step, self.params, self.feats, *self._epoch_cache(),
             self.hop, batches, labels, row_masks, pair_stack)
-        # the epoch's one synchronisation
-        self.step_losses = losses.cpu().tolist()
+        # the epoch's one synchronisation, deadline-guarded
+        self.step_losses = fetch_with_deadline(
+            losses, label=f"cached epoch {self.epoch} loss fetch",
+            convert=torch.Tensor.tolist)
         mean_loss = float(np.mean(self.step_losses))
         self.metrics.log("epoch", epoch=self.epoch, mean_loss=mean_loss,
                          visited_nodes=visited, train_nodes=len(order),

@@ -59,7 +59,9 @@ from graphsage_torch.sampler.compact import _bucket
 from graphsage_torch.train.dense import cast_compute
 from graphsage_torch.train.metrics import micro_f1
 from graphsage_torch.train.optim import apply_gradients
-from graphsage_torch.utils.obs import MetricsLogger
+from graphsage_torch.utils.obs import (MetricsLogger, collective_watchdog,
+                                       fetch_with_deadline,
+                                       maybe_inject_test_wedge)
 from graphsage_torch.utils.prefetch import Prefetcher, prefetch
 
 
@@ -169,6 +171,7 @@ class Trainer:
         self.history: list[dict] = []
         self.step_losses: list[float] = []   # the last epoch's, per step
         self.metrics = MetricsLogger(train_cfg.metrics_path)
+        self._warmed = False   # the first step runs under a watchdog
 
     @staticmethod
     def _check_config(model_cfg: GraphSageConfig) -> None:
@@ -178,30 +181,44 @@ class Trainer:
         compute_dtype(model_cfg)
 
     # ---------------------------------------------------------------- step
-    def _encode(self, sage_params: dict, cb) -> torch.Tensor:
-        """The encoder on one compact batch, in the compute dtype; the
-        params are rounded to it here, inside the differentiated function,
-        so that the float32 masters get float32 gradients."""
+    def _encode(self, sage_params: dict, x0_ids: torch.Tensor,
+                frontiers: list[Frontier]) -> torch.Tensor:
+        """The encoder on one compact batch on the device, in the compute
+        dtype; the params are rounded to it here, inside the differentiated
+        function, so that the float32 masters get float32 gradients."""
         return graphsage_apply_gathered(
             cast_compute(sage_params, self.mcfg), self.mcfg, self.feats,
-            _to_device(cb.x0_ids, self.device), _frontiers(cb, self.device))
+            x0_ids, frontiers)
 
     def _step(self, pb, cb, labels: np.ndarray,
               row_mask: np.ndarray) -> torch.Tensor:
         """One joint step: encode, loss, backward, per-model clip, SGD.
-        Returns the loss (a device scalar, not synchronised)."""
+        Returns the loss (a device scalar, not synchronised).
+
+        The whole batch goes to the device before the step launches
+        anything.  A copy from ordinary host memory waits for all the
+        work queued on the device, outside any deadline; made first, the
+        copies wait only for the steps before, whose loss ``train_epoch``
+        has already waited for under the deadline."""
         tcfg = self.tcfg
-        embs = self._encode(self.params["sage"], cb)
-        loss = torch.zeros((), device=self.device)
-        if tcfg.learn_method in ("sup", "plus_unsup"):
+        dev = self.device
+        x0_ids, frontiers = _to_device(cb.x0_ids, dev), _frontiers(cb, dev)
+        sup = tcfg.learn_method in ("sup", "plus_unsup")
+        unsup = tcfg.learn_method in ("unsup", "plus_unsup")
+        if sup:
+            labels = _to_device(labels, dev)
+            row_mask = _to_device(row_mask, dev)
+        if unsup:
+            pairs = _pair_tensors(pb, dev)
+        embs = self._encode(self.params["sage"], x0_ids, frontiers)
+        loss = torch.zeros((), device=dev)
+        if sup:
             logp = classifier_apply(cast_compute(self.params["clf"],
                                                  self.mcfg), embs)
-            loss = loss + supervised_nll(logp,
-                                         _to_device(labels, self.device),
-                                         _to_device(row_mask, self.device))
-        if tcfg.learn_method in ("unsup", "plus_unsup"):
+            loss = loss + supervised_nll(logp, labels, row_mask)
+        if unsup:
             loss = loss + unsup_loss_from_pairbatch(
-                embs, _pair_tensors(pb, self.device), tcfg.unsup_loss,
+                embs, pairs, tcfg.unsup_loss,
                 q=self.pair_sampler.q, margin=self.pair_sampler.margin)
         apply_gradients(self.params, loss, ("sage", "clf"), tcfg.lr,
                         tcfg.clip_norm)
@@ -220,7 +237,9 @@ class Trainer:
                                  fanout=self.tcfg.fanout, gcn=self.mcfg.gcn,
                                  shuffle_slots=self.mcfg.agg_func == "LSTM")
         with torch.no_grad():
-            embs = self._encode(sage_params, cb)
+            embs = self._encode(sage_params,
+                                _to_device(cb.x0_ids, self.device),
+                                _frontiers(cb, self.device))
         return embs.float().cpu().numpy()[:len(nodes)]
 
     def all_embeddings(self) -> np.ndarray:
@@ -293,14 +312,19 @@ class Trainer:
         src/utils.py:113-193).  Returns the mean step loss; the per-step
         losses are left in ``self.step_losses``.
 
-        Verbose mode prints every step's loss (one host sync a step, as the
-        reference prints); quiet mode keeps the losses on the device until
-        the epoch's end."""
+        Each step's loss is fetched through ``fetch_with_deadline``: in
+        verbose mode right after the step, to print it (as the reference
+        prints), in quiet mode just before the next step's copies to the
+        device, which would wait for it anyway (see ``_step``), and the
+        last one at the epoch's end.  A kernel that hangs in a step thus
+        raises ``FetchDeadlineError`` at the fetch of that step's loss,
+        and the host never blocks unguarded behind it."""
         tcfg = self.tcfg
         train_nodes = self.rng.permutation(self.ds.train_nodes)
         batches = math.ceil(len(train_nodes) / tcfg.b_sz)
         visited: set[int] = set()
-        losses = []
+        losses: list[float] = []
+        pending = None   # (loss, label) of a step not fetched yet
 
         def producer():
             for bi in range(batches):
@@ -310,23 +334,42 @@ class Trainer:
         stream = prefetch(producer, depth=tcfg.prefetch_depth,
                           enabled=tcfg.prefetch_depth > 0)
         try:
-            for bi, (pb, cb, labels, row_mask) in enumerate(stream):
+            for bi, batch in enumerate(stream):
+                pb = batch[0]
                 visited.update(int(v)
                                for v in pb.unique_nodes[:pb.num_unique])
-                loss = self._step(pb, cb, labels, row_mask)
-                losses.append(loss)
+                if pending is not None:
+                    losses.append(fetch_with_deadline(*pending))
+                    pending = None
+                if self._warmed:
+                    pending = (self._step(*batch),
+                               f"step {bi + 1} loss fetch")
+                else:
+                    # the first step loads the kernels on the card (and
+                    # builds them when no build is current): say it is
+                    # warmup if it takes long
+                    with collective_watchdog(
+                            label="first train step (kernel load/warmup)"):
+                        losses.append(fetch_with_deadline(
+                            self._step(*batch),
+                            label="step 1 loss fetch (warmup)"))
+                    self._warmed = True
                 if tcfg.verbose:
+                    if pending is not None:
+                        losses.append(fetch_with_deadline(*pending))
+                        pending = None
                     # per-step loss print (reference src/utils.py:183)
                     print(f"Step [{bi + 1}/{batches}], Loss: "
-                          f"{loss.item():.4f}, Dealed Nodes "
-                          f"[{len(visited)}/{len(train_nodes)}]")
+                          f"{losses[-1]:.4f}, Dealed Nodes [{len(visited)}/"
+                          f"{len(train_nodes)}]")
+            if pending is not None:
+                losses.append(fetch_with_deadline(*pending))
         except BaseException:
             if isinstance(stream, Prefetcher):
                 stream.close()  # unblock and join the producer thread
             raise
-        self.step_losses = (torch.stack(losses).cpu().tolist()
-                            if losses else [])
-        mean_loss = float(np.mean(self.step_losses))
+        self.step_losses = losses
+        mean_loss = float(np.mean(losses))
         self.metrics.log("epoch", epoch=self.epoch, mean_loss=mean_loss,
                          visited_nodes=len(visited),
                          train_nodes=len(train_nodes))
@@ -362,10 +405,12 @@ class Trainer:
 
     def fit(self) -> float:
         """The outer loop (reference src/main.py:70-76), from
-        ``self.epoch``."""
+        ``self.epoch``: a resumed trainer continues at the epoch after its
+        checkpoint."""
         tcfg = self.tcfg
         for epoch in range(self.epoch, tcfg.epochs):
             self.epoch = epoch
+            maybe_inject_test_wedge(epoch)
             if tcfg.verbose:
                 print(f"----------------------EPOCH {epoch}"
                       "-----------------------")

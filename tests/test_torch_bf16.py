@@ -302,7 +302,8 @@ def test_cli_trains_bf16_exports_and_serves_bf16(pipeline, tmp_path):
     out = str(tmp_path / "bundle")
     argv = ["--dataSet", "powerlaw:300:1200", "--epochs", "1", "--b_sz",
             "50", "--hidden", "16", "--device", "cpu", "--export", out,
-            "--seed", "3", "--compute_dtype", "bfloat16", "--quiet"]
+            "--seed", "3", "--compute_dtype", "bfloat16", "--quiet",
+            "--checkpoint_dir", str(tmp_path / "ck")]
     if pipeline == "cached":
         argv += ["--pipeline", "cached", "--table_cap", "8"]
     trainer, _ = cli.run(argv)

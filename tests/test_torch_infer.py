@@ -293,7 +293,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.train.cached, graphsage_torch.train.cached_trainer, "
         "graphsage_torch.microbench, graphsage_torch.kernel_ab, "
         "graphsage_torch.models.lstm_agg, graphsage_torch.train.dense, "
-        "graphsage_torch.entry, graphsage_torch.ops.scatter\n"
+        "graphsage_torch.entry, graphsage_torch.ops.scatter, "
+        "graphsage_torch.utils.config, graphsage_torch.utils.checkpoint, "
+        "graphsage_torch.supervise\n"
         "import chip_smoke\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n")

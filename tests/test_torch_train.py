@@ -47,6 +47,7 @@ from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.train import Trainer, TrainConfig
 from graphsage_torch.train.optim import clip_by_global_norm, sgd_update
 from graphsage_torch.train.trainer import _frontiers, _leaf_params
+from graphsage_torch.utils.config import HoconSubsetError
 from tests.test_torch_aggregate import _case
 
 ENC = dict(rtol=1e-5, atol=1e-6)
@@ -452,7 +453,8 @@ def test_cli_trains_exports_and_serves(tmp_path, capsys):
     out = str(tmp_path / "bundle")
     argv = ["--dataSet", "powerlaw:300:1200", "--learn_method", "plus_unsup",
             "--epochs", "1", "--b_sz", "50", "--hidden", "16",
-            "--device", "cpu", "--export", out, "--seed", "3"]
+            "--device", "cpu", "--export", out, "--seed", "3",
+            "--checkpoint_dir", str(tmp_path / "ck")]
     assert cli.main(argv) == 0
     assert "Best validation F1" in capsys.readouterr().out
     params, mcfg, ncls, meta = infer.load_bundle(out)
@@ -476,16 +478,22 @@ def test_cli_trains_exports_and_serves(tmp_path, capsys):
         len(trainer.ds.val_nodes),)
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--pipeline", "cached_dist"], "item 16"),
-    (["--pipeline", "dist"], "item 16"),
-    (["--resume", "x"], "item 8"),
-    (["--config", "x.conf"], "item 8"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--pipeline", "cached_dist"], NotImplementedError, "item 16"),
+    (["--pipeline", "dist"], NotImplementedError, "item 16"),
+    (["--resume", "{tmp}/no_such_checkpoint"], FileNotFoundError,
+     "no_such_checkpoint"),
+    (["--config", "{tmp}/include.conf"], HoconSubsetError, "'include'"),
 ])
-def test_cli_refuses_what_is_not_ported(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_refuses_what_is_not_ported(flags, error, match, tmp_path):
+    """Unported pipelines, a checkpoint that is not there and a config
+    file outside the HOCON subset fail loudly."""
+    (tmp_path / "include.conf").write_text('include "other.conf"\n')
+    flags = [f.format(tmp=tmp_path) for f in flags]
+    with pytest.raises(error, match=match):
         cli.main(["--dataSet", "powerlaw:100:400", "--device", "cpu",
-                  "--epochs", "1", "--quiet", *flags])
+                  "--epochs", "1", "--quiet", "--checkpoint_dir",
+                  str(tmp_path / "ck"), *flags])
 
 
 def test_cli_cached_lstm_needs_the_hybrid_flag():
@@ -507,7 +515,7 @@ def test_cli_trains_max_and_lstm_exports_and_serves(agg_func, tmp_path,
         "--dataSet", "powerlaw:300:1200", "--agg_func", agg_func,
         "--learn_method", "plus_unsup", "--epochs", "1", "--b_sz", "100",
         "--hidden", "8", "--device", "cpu", "--export", out, "--seed", "3",
-        "--quiet"])
+        "--quiet", "--checkpoint_dir", str(tmp_path / "ck")])
     assert type(trainer).__name__ == "Trainer"
     assert np.isfinite(trainer.step_losses).all()
     params, mcfg, _, meta = infer.load_bundle(out)
@@ -531,7 +539,8 @@ def test_cli_cached_lstm_hybrid_exports_and_serves_the_hybrid(tmp_path):
     argv = ["--dataSet", "powerlaw:300:1200", "--pipeline", "cached",
             "--agg_func", "LSTM", "--lstm_hybrid", "--table_cap", "8",
             "--epochs", "2", "--b_sz", "50", "--hidden", "8",
-            "--device", "cpu", "--export", out, "--seed", "3", "--quiet"]
+            "--device", "cpu", "--export", out, "--seed", "3", "--quiet",
+            "--checkpoint_dir", str(tmp_path / "ck")]
     trainer, best = cli.run(argv)
     assert type(trainer).__name__ == "CachedTrainer"
     params, mcfg, _, meta = infer.load_bundle(out)
@@ -564,7 +573,8 @@ def test_cli_cached_pipeline_trains_exports_and_serves(tmp_path,
         "--dataSet", "powerlaw:300:1200", "--pipeline", "cached",
         "--table_cap", "8", "--refresh_every", "2", "--epochs", "2",
         "--learn_method", "plus_unsup", "--b_sz", "50", "--hidden", "16",
-        "--device", "cpu", "--export", out, "--seed", "3", "--quiet"])
+        "--device", "cpu", "--export", out, "--seed", "3", "--quiet",
+        "--checkpoint_dir", str(tmp_path / "ck")])
     assert type(trainer).__name__ == "CachedTrainer"
     assert trainer.neighbors.shape[1] == 8 and len(trainer.history) == 2
     params, mcfg, _, meta = infer.load_bundle(out)
