@@ -189,6 +189,46 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
        encode and the update, and a 2 s deadline; the process must end
        with code 17, the step's loss fetch named, within 3 deadlines of
        the sleep.
+11. Distribution at world 1 on NCCL (parallel.multihost.initialize: the real
+   collectives, no shortcut), on the same graph, 2 layers, hidden 128,
+   fanout 10, lr 0.7, seed 824:
+   (n) cached_dist sup MEAN bf16 on (e)'s bench batches (b_sz 65536, 20
+       steps, one refresh): local_refresh and cached_epoch_reuse over a
+       CachedDistStep, counted (gather_mean 1; gather_rows and scatter_rows
+       one a step); its loss curve must equal (e)'s bit for bit (the same
+       draws and batches; at world 1 the all_gather, the reduce-scatter and
+       the gradient all-reduce are copies); the refresh and every step
+       against the plain versions in bf16 lockstep; refresh_ms,
+       ms_per_step, edges/s, busy and idle share beside (e)'s, and the
+       world-1 all_gather and reduce-scatter of the [100000, 128] table
+       timed alone, and (e) and (n) epochs in turns; then cached_dist sup
+       MAX bf16 on (h)'s batches (b_sz 32768, 10 steps): equal to (h) bit
+       for bit, in lockstep, its refresh a gather_max launch;
+   (o) dist sup MEAN bf16, b_loc 4096, the pretransform on (a [., 2H]
+       payload): 8 host-built batches (build_dist_batch's host ms printed),
+       make_dist_sup_step counted (a step: gather_rows 3, gather_mean 2,
+       scatter_rows 7), bf16 lockstep; dist_step_ms against a local oracle
+       with identical frontiers and no exchange (the layer-0 rows gathered
+       by their x0 ids), whose first step's loss must equal the exchange's
+       bit for bit; the halo overhead in ms and %;
+   (p) dist plus_unsup MEAN f32, b_loc 128 (at 512 the score rule,
+       ops/sddmm.py dense_block_pays, takes the gathered cosines and
+       pair_scores would not run): counted (a pair_scores a step), float32
+       lockstep;
+   (q) full_graph_embeddings_sharded, MEAN f32 and MAX bf16, against
+       full_graph_embeddings (kernel tolerances; bit-for-bit equality
+       reported), launches, embed_all_ms and its profile;
+   (r) the CLI through torchrun --standalone --nproc_per_node 1 -m
+       graphsage_torch.cli, --pipeline dist and cached_dist (--table_cap 8
+       --no_extend), bf16, 3 epochs on powerlaw:2000:10000 with --export
+       (served through InferenceSession.from_bundle, equal to
+       full_graph_embeddings), then resumed from its epoch-0 checkpoint:
+       epochs 1-2's mean loss and val F1 must equal the unbroken run's bit
+       for bit.  Files under build/chip_smoke_dist.
+   Kernel rows: gather_mean / gather_max at (n)'s refreshes, gather_rows
+   and scatter_rows at (n)'s h1_full gather and (o)'s three exchange
+   gathers, pair_scores at (p)'s step, gather_mean / gather_max at (q)'s
+   layer 1.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -210,6 +250,7 @@ power limit from nvidia-smi, and the result line
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -236,11 +277,15 @@ from graphsage_torch.models import (GraphSageConfig, graphsage,
                                     init_classifier, init_graphsage, lstm_agg)
 from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
+from graphsage_torch.models.layers import mean_pretransform
 from graphsage_torch.ops import build, gather, scatter, sddmm
+from graphsage_torch.parallel import comm, halo, multihost
+from graphsage_torch.sampler import PairSampler
 from graphsage_torch.sampler.compact import _bucket
 from graphsage_torch.sampler.device import HopSampler
 from graphsage_torch.train import (CachedTrainer, Trainer, TrainConfig,
-                                   cached, dense, micro_f1)
+                                   cached, cached_dist, dense, distributed,
+                                   micro_f1)
 from graphsage_torch.train.optim import tree_leaves
 from graphsage_torch.train.trainer import _leaf_params
 
@@ -330,6 +375,21 @@ def patched(module, **attrs):
     finally:
         for name, value in saved.items():
             setattr(module, name, value)
+
+
+@contextlib.contextmanager
+def keep_gathers(module, seen: list):
+    """``module.gather_rows`` recording (table, idx, incoming gradient) of
+    every call whose output carries a gradient."""
+    def gather_rec(table, idx):
+        out = gather.gather_rows(table, idx)
+        if out.requires_grad:
+            out.register_hook(lambda g: seen.append(
+                (table.detach(), idx, g.detach())))
+        return out
+
+    with patched(module, gather_rows=gather_rec):
+        yield
 
 
 def plain_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -460,10 +520,11 @@ def timing_note(row: dict) -> str:
 # ------------------------------------------------------------ serving
 
 def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
-                      top: int = 8) -> None:
+                      top: int = 8) -> float | None:
     """Device kernel time by kernel over one call of fn (torch.profiler),
     and the device's idle share against the warm wall time of that call.
-    The port's own kernels are listed even when they are not in the top."""
+    The port's own kernels are listed even when they are not in the top.
+    Returns the busy ms (None when the profiler recorded none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -477,7 +538,7 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
             and evt.self_device_time_total]
     if not rows:
         log("  profile: no device time recorded (not measured)")
-        return
+        return None
     busy = sum(t for t, _, _ in rows) / 1e3
     log(f"  profile: device busy {busy:.6f} ms of {what} "
         f"{wall_ms:.6f} (idle share {1 - busy / wall_ms:.4f}); by kernel:")
@@ -487,6 +548,7 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
     for rank, (t, key, count) in enumerate(sorted(rows, reverse=True)):
         if rank < top or any(name in key for name in ours):
             log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
+    return busy
 
 
 def serving_launches(cfg: GraphSageConfig, lstm_hybrid: bool) -> dict:
@@ -1597,10 +1659,11 @@ class SnapshotHop(RecordingHop):
 
 
 def replay_lockstep(tag: str, step, params: dict, records: list, plain,
-                    args_of) -> None:
+                    args_of, dtype: str = "bfloat16") -> None:
     """Each recorded step again through the plain versions, from the kernel
     run's params before that step and on its draws (``args_of(rec)``: the
-    step's arguments after the params); bfloat16 lockstep tolerances."""
+    step's arguments after the params); the lockstep tolerances of
+    ``dtype``."""
     ref = _leaf_params(params, params["clf"]["weight"].device)
     loss_rel, abs_errs, upd_errs = [], [], []
     agg.reset_launches()
@@ -1616,7 +1679,7 @@ def replay_lockstep(tag: str, step, params: dict, records: list, plain,
             abs_errs.append(max_abs_diff(got, rec["after"]))
             upd_errs.append(update_error(got, rec["after"], rec["before"]))
     assert sum(agg.LAUNCHES.values()) == 0, agg.LAUNCHES
-    assert_lockstep(tag, "bfloat16", loss_rel, abs_errs, upd_errs)
+    assert_lockstep(tag, dtype, loss_rel, abs_errs, upd_errs)
 
 
 def timed_steps(tag: str, run_step, steps: int, edges: int) -> float:
@@ -1637,9 +1700,9 @@ def timed_steps(tag: str, run_step, steps: int, edges: int) -> float:
     return ms
 
 
-def epoch_profile(tag: str, epoch, steps: int) -> float:
+def epoch_profile(tag: str, epoch, steps: int) -> tuple:
     """A warm epoch's wall time (host clock, synchronised) and the device
-    profile of another; returns the wall ms."""
+    profile of another; returns (wall ms, device busy ms or None)."""
     epoch()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1648,8 +1711,7 @@ def epoch_profile(tag: str, epoch, steps: int) -> float:
     wall = (time.perf_counter() - t0) * 1e3
     log(f"{tag} one epoch of {steps} steps {wall:.6f} ms ({wall / steps:.6f} "
         f"ms a step, no synchronisation inside)")
-    profile_device(epoch, wall, what="epoch ms", top=12)
-    return wall
+    return wall, profile_device(epoch, wall, what="epoch ms", top=12)
 
 
 def upcast_costs(tag: str, table: torch.Tensor, w: torch.Tensor) -> None:
@@ -1795,19 +1857,11 @@ def bf16_cached(label: str, agg_func: str, b: int, steps: int, feats16,
         return cached.cached_epoch_reuse(step, params, feats16, *c, hop,
                                          batches, batch_labels)
 
-    wall = epoch_profile(tag, epoch, steps)
+    wall, busy = epoch_profile(tag, epoch, steps)
 
     # -------- one more step, its layer-1 gather and incoming gradient kept
     seen = []
-
-    def gather_rec(table, idx):
-        out = gather.gather_rows(table, idx)
-        if out.requires_grad:
-            out.register_hook(lambda g: seen.append(
-                (table.detach(), idx, g.detach())))
-        return out
-
-    with patched(cached, gather_rows=gather_rec):
+    with keep_gathers(cached, seen):
         step(params, feats16, *cache, hop, batches[0], batch_labels[0])
     torch.cuda.synchronize()
     table, idx, g = seen[0]
@@ -1815,9 +1869,10 @@ def bf16_cached(label: str, agg_func: str, b: int, steps: int, feats16,
     return {"label": label, "agg": agg_func, "launches": launches,
             "cache": cache, "refresh_draws": refresh_draws, "params": params,
             "gather": (table, idx, g),
+            "losses": losses.tolist(),
             "summary": {"refresh_ms": refresh_ms, "ms_per_step": ms,
                         "edges_per_s": edges / ms * 1e3, "epoch_ms": wall,
-                        "steps": steps}}
+                        "busy_ms": busy, "steps": steps}}
 
 
 def bf16_dense(feats16, tables, labels, dev: torch.device) -> dict:
@@ -1868,8 +1923,9 @@ def bf16_dense(feats16, tables, labels, dev: torch.device) -> dict:
     ms = timed_steps(tag, lambda t: step(params, feats16, hop, batches[t],
                                          batch_labels[t]),
                      DENSE_STEPS, edges)
-    wall = epoch_profile(tag, lambda: epoch(params, feats16, hop, batches,
-                                            batch_labels), DENSE_STEPS)
+    wall, busy = epoch_profile(tag, lambda: epoch(params, feats16, hop,
+                                                  batches, batch_labels),
+                               DENSE_STEPS)
     seen = []
 
     def mean_rec(embed, idx, mask):
@@ -1881,12 +1937,14 @@ def bf16_dense(feats16, tables, labels, dev: torch.device) -> dict:
     torch.cuda.synchronize()
     return {"launches": launches, "params": params, "inputs": seen,
             "summary": {"ms_per_step": ms, "edges_per_s": edges / ms * 1e3,
-                        "epoch_ms": wall, "steps": DENSE_STEPS}}
+                        "epoch_ms": wall, "busy_ms": busy,
+                        "steps": DENSE_STEPS}}
 
 
-def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> list:
+def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> tuple:
     """Phase 9: bfloat16 training at full width, (e)-(i); returns the
-    bfloat16 kernel rows."""
+    bfloat16 kernel rows, and (e)'s and (h)'s summaries and loss curves
+    (phase 11 (n) runs their configurations sharded)."""
     log(f"bf16: torch.backends.cuda.matmul."
         f"allow_bf16_reduced_precision_reduction is "
         f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}"
@@ -1906,6 +1964,9 @@ def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> list:
         summaries[label] = res["summary"]
     assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
     e = results["e"]
+    runs = {label: {"summary": results[label]["summary"],
+                    "losses": results[label]["losses"]}
+            for label in ("e", "h")}
     w1 = dense.cast_compute(e["params"]["sage"]["layers"][0]["weight"],
                             bf16_config())
     upcast_costs("[bf16 cached e]",
@@ -1971,7 +2032,7 @@ def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> list:
     rows.extend(max_step_rows(capture_step_inputs(res["trainer"]),
                               res["launches"]))
     log(json.dumps({"bf16": summaries}))
-    return rows
+    return rows, runs
 
 
 def microbench_rows(dev: torch.device, launches: int) -> list:
@@ -2485,6 +2546,748 @@ def resume_phase(dev: torch.device) -> None:
     log(f"[resume] phase 10 took {time.perf_counter() - t0:.3f} s")
 
 
+# ------------------------------------------------------------ distribution
+
+# phase 11 (o) and (p): the halo pipeline's batch per rank and step counts
+DIST_O_B, DIST_O_STEPS = 4096, 8
+DIST_P_B, DIST_P_STEPS = 128, 5
+# phase 11 (r): the CLI under torchrun, world 1
+DIST_CLI = ["--dataSet", "powerlaw:2000:10000", "--epochs", "3", "--b_sz",
+            "256", "--compute_dtype", "bfloat16", "--name", "r"]
+
+
+@contextlib.contextmanager
+def plain_cached_dist():
+    """The sharded cached pipeline through the plain versions on the card."""
+    with patched(cached_dist, gather_rows=gather.gather_rows_plain,
+                 mean_aggregate=agg.mean_aggregate_plain,
+                 max_aggregate=agg.max_aggregate_plain), \
+            plain_cached():
+        yield
+
+
+@contextlib.contextmanager
+def plain_dist():
+    """The halo pipeline through the plain versions on the card: the
+    exchange's row gathers are index_select, the aggregates and the self
+    and pair gathers autograd's."""
+    with patched(halo, gather_rows=gather.gather_rows_plain), \
+            patched(distributed, mean_aggregate=agg.mean_aggregate_plain,
+                    take_rows=plain_take), \
+            plain_training():
+        yield
+
+
+def local_oracle(x_local, t, group):
+    """The halo exchange's stand-in with identical frontiers and no
+    exchange: the layer-0 rows by their global ids (``t["x0"]``; at world
+    1 the local table is the whole table)."""
+    return gather.gather_rows(x_local, t["x0"].int())
+
+
+@contextlib.contextmanager
+def oracle_exchange():
+    """``train.distributed`` with the halo exchange swapped for
+    :func:`local_oracle`."""
+    with patched(distributed, _halo=local_oracle):
+        yield
+
+
+def wall_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def in_turns(a, b, rounds: int) -> tuple[list, list]:
+    """(a's, b's) synchronised host ms over ``rounds`` rounds of a, b, b,
+    a."""
+    ta, tb = [], []
+    for _ in range(rounds):
+        ta.append(wall_ms(a))
+        tb.extend([wall_ms(b), wall_ms(b)])
+        ta.append(wall_ms(a))
+    return ta, tb
+
+
+@contextlib.contextmanager
+def launches_by_call(module, name: str, key, into: collections.Counter):
+    """``module.name`` wrapped so that the launches each call makes (the
+    wrappers' own counts in ``agg.LAUNCHES``) are credited to (kernel,
+    ``key(*args)``): the launches of one shape on a path that launches a
+    kernel at several."""
+    fn = getattr(module, name)
+
+    def counted(*args):
+        before = dict(agg.LAUNCHES)
+        out = fn(*args)
+        for kernel, n in agg.LAUNCHES.items():
+            if n != before[kernel]:
+                into[(kernel, key(*args))] += n - before[kernel]
+        return out
+
+    with patched(module, **{name: counted}):
+        yield
+
+
+def row_key(table: torch.Tensor, idx: torch.Tensor) -> tuple:
+    return tuple(table.shape), table.stride(0), tuple(idx.shape)
+
+
+COLLECTIVE_OPS = ("AllGatherRows", "AllToAllRows", "allreduce", "all_gather",
+                  "reduce_scatter", "all_to_all")
+
+
+def trace_breakdown(events: list) -> tuple[dict, collections.Counter]:
+    """Where a traced call's wall time went, from the complete ("X") events
+    of a torch.profiler Chrome trace: the span from the first event to the
+    last, the device's busy time and the gaps between its kernels, the host
+    time of the top-level ops on each host thread (the main thread and
+    autograd's), the host time of the top-level ops that issue collectives
+    (``COLLECTIVE_OPS``), the CUDA runtime and driver calls that took the
+    most host time, and the host events that overlap the longest device
+    gap (what the host was inside while the device waited); with the host
+    ms by top-level op.  ({}, ...) when the trace holds no device time."""
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"))
+    if not dev:
+        return {}, collections.Counter()
+    t0 = min(e["ts"] for e in events)
+    span = (max(e["ts"] + e["dur"] for e in events) - t0) / 1e3
+    busy, gaps, end = 0.0, [], dev[0][0]
+    for s, e in dev:
+        if s > end:
+            gaps.append((end, s))
+        busy += max(0.0, e - max(s, end)) / 1e3
+        end = max(end, e)
+    lo, hi = max(gaps, key=lambda g: g[1] - g[0], default=(0.0, 0.0))
+    gaps = [(b - a) / 1e3 for a, b in gaps]
+    threads = collections.defaultdict(list)
+    runtime = collections.defaultdict(lambda: [0, 0.0, 0.0])
+    in_gap = collections.Counter()
+    for e in events:
+        if e.get("cat") in ("cpu_op", "user_annotation", "cuda_runtime",
+                            "cuda_driver"):
+            threads[e["tid"]].append(e)
+            overlap = min(hi, e["ts"] + e["dur"]) - max(lo, e["ts"])
+            if overlap > 0:
+                in_gap[e["name"][:60]] += overlap / 1e3
+        if e.get("cat") in ("cuda_runtime", "cuda_driver"):
+            r = runtime[e["name"]]
+            r[0] += 1
+            r[1] += e["dur"] / 1e3
+            r[2] = max(r[2], e["dur"] / 1e3)
+    per_thread, collective_ms_, top_ops = [], 0.0, collections.Counter()
+    for ops in threads.values():
+        ops.sort(key=lambda e: (e["ts"], -e["dur"]))
+        total, end = 0.0, -1.0
+        for e in ops:
+            if e["ts"] < end:
+                continue                 # inside a top-level op
+            end = e["ts"] + e["dur"]
+            total += e["dur"] / 1e3
+            top_ops[e["name"][:70]] += e["dur"] / 1e3
+            if any(c in e["name"] for c in COLLECTIVE_OPS):
+                collective_ms_ += e["dur"] / 1e3
+        per_thread.append(total)
+    per_thread.sort(reverse=True)
+    return {"span_ms": span, "busy_ms": busy, "device_gaps_ms": sum(gaps),
+            "longest_gap_ms": max(gaps, default=0.0),
+            "gaps_over_50us": sum(g > 0.05 for g in gaps),
+            "host_top_level_ms": per_thread,
+            "collectives_host_ms": collective_ms_,
+            "runtime_calls_n_ms_max": dict(sorted(
+                runtime.items(), key=lambda kv: -kv[1][1])[:6]),
+            "in_longest_gap_ms": dict(in_gap.most_common(8))}, top_ops
+
+
+def host_profile(tag: str, fn) -> dict:
+    """:func:`trace_breakdown` of one call of fn, traced by torch.profiler
+    (its Chrome JSON written to a temporary directory and read back)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            out, top_ops = trace_breakdown(
+                [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X"])
+    if not out:
+        log(f"{tag} host profile: no device time recorded (not measured)")
+        return out
+    log(f"{tag} host profile: {json.dumps(out)}; top host ops (ms): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in top_ops.most_common(8)))
+    return out
+
+
+def collective_ms(tag: str, h: torch.Tensor) -> None:
+    """CUDA-event time of the world-1 collectives at the table's shape:
+    all_gather_rows forward, and the SUM reduce-scatter of its backward."""
+    gathered = cuda_ms(lambda: comm.all_gather_rows(h), reps=20)
+    scattered = cuda_ms(lambda: comm._reduce_scatter_sum(h, None), reps=20)
+    log(f"{tag} world-1 NCCL collectives on {list(h.shape)} {h.dtype} "
+        f"({h.numel() * h.element_size()} bytes): all_gather "
+        f"{gathered:.6f} ms, reduce-scatter {scattered:.6f} ms (events, "
+        f"mean of 20)")
+
+
+def dist_cached_n(label: str, feats16, tables, labels, ref_run: dict,
+                  dev: torch.device) -> tuple:
+    """(n) cached_dist sup bf16 on the batches of phase 9's run ``label``
+    ((e) MEAN, timed; (h) MAX): local_refresh and cached_epoch_reuse over a
+    CachedDistStep, counted; the loss curve against that run's (world 1:
+    the same draws, the collectives copies); the refresh and every step
+    against the plain versions on the recorded draws.  For (e) also
+    refresh_ms, ms_per_step, edges/s, busy and idle share beside (e)'s,
+    and the h1_full gather and its backward's kernel rows.  Returns
+    (summary, kernel rows)."""
+    _, agg_func, b, steps = next(c for c in BF16_CACHED if c[0] == label)
+    cfg = bf16_config(agg_func)
+    rank, world = comm.rank_world()
+    tag = (f"[dist n: cached_dist sup {agg_func} bf16 b_sz {b} on ({label})'s"
+           f" batches, world {world} {torch.distributed.get_backend()}]")
+    params = bf16_params(cfg, dev)
+    batches, batch_labels = bench_batches(b, steps, labels)
+    hop = RecordingHop(HopSampler(*tables, torch.Generator(
+        device=dev).manual_seed(SEED + 1)))
+    step = cached_dist.CachedDistStep(cfg, fanout=FANOUT, lr=LR)
+    x_local = cached_dist.local_rows(feats16, rank, world)
+    records = []
+
+    def recording_step(params_, xl, cl, cnt, hop_, *args):
+        before, first = snapshot(params_), len(hop.draws)
+        loss = step(params_, xl, cl, cnt, hop_, *args)
+        records.append({"before": before, "after": snapshot(params_),
+                        "args": args, "draws": hop.draws[first:],
+                        "loss": loss})
+        return loss
+
+    # -------- the main path, counted
+    agg.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = cached_dist.local_refresh(hop, feats16, FANOUT, agg_func, rank,
+                                      world)
+    refresh_draws = list(hop.draws)
+    losses = cached.cached_epoch_reuse(recording_step, params, x_local,
+                                       *cache, hop, batches, batch_labels)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(agg.LAUNCHES)
+    # one refresh; a step takes its layer-1 rows out of the all-gathered
+    # table (gather_rows) and scatters their bf16 gradient (scatter_rows)
+    want = {"gather_mean": int(agg_func == "MEAN"),
+            "gather_max": int(agg_func == "MAX"), "pair_scores": 0,
+            "gather_rows": steps, "scatter_rows": steps}
+    log(f"{tag} main path: local_refresh + cached_epoch_reuse over "
+        f"CachedDistStep, {steps} steps in {run_s:.3f} s; launches "
+        f"{launches}; predicted from the code {want}; loss curve "
+        + " ".join(f"{x:.6f}" for x in losses.tolist()))
+    assert launches == want, (launches, want)
+    assert torch.isfinite(losses).all()
+    same = losses.tolist() == ref_run["losses"]
+    log(f"{tag} loss curve equal to ({label})'s bit for bit (world "
+        f"{world}: the same draws and batches, the collectives copies): "
+        f"{same}")
+    if world == 1:
+        assert same, (losses.tolist(), ref_run["losses"])
+
+    # -------- the refresh and every step against the plain versions
+    with plain_cached_dist():
+        ref_f, ref_c = cached_dist.local_refresh(
+            ReplayHop(refresh_draws), feats16, FANOUT, agg_func, rank, world)
+    err = check_close(f"{tag} refresh vs plain", cache[0], ref_f,
+                      exact=agg_func == "MAX")
+    assert torch.equal(cache[1], ref_c)
+    log(f"{tag} refresh vs plain on the same samples: max abs error {err}")
+    replay_lockstep(tag, step, params, records, plain_cached_dist,
+                    lambda rec: (x_local, *cache, ReplayHop(rec["draws"]),
+                                 *rec["args"]))
+    del records
+    (samples, valid), = refresh_draws
+    own = torch.arange(NODES, dtype=torch.int32, device=dev)
+    mask = (valid & (samples != own[:, None])).float()
+    name = "gather_max" if agg_func == "MAX" else "gather_mean"
+    rows = [kernel_row(name, f"bf16 cached_dist ({label}'s batches) local "
+                       f"refresh, idx [{NODES}, {FANOUT}] over [{NODES}, "
+                       f"{FEATS}]", feats16, samples, mask, launches[name])]
+    if label != "e":
+        return {"steps": steps, "equal": same}, rows
+
+    # -------- refresh_ms, ms_per_step, the epoch's idle share
+    times_ = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cached_dist.local_refresh(hop, feats16, FANOUT, agg_func, rank,
+                                  world)
+        torch.cuda.synchronize()
+        times_.append((time.perf_counter() - t0) * 1e3)
+    refresh_ms = statistics.median(times_)
+    log(f"{tag} refresh_ms {refresh_ms:.6f} (median of 5; min "
+        f"{min(times_):.6f}, max {max(times_):.6f})")
+    edges = dense.edges_per_batch(b, 2, FANOUT)
+    ms = timed_steps(tag, lambda t: step(params, x_local, *cache, hop,
+                                         batches[t], batch_labels[t]),
+                     steps, edges)
+
+    def epoch():
+        c = cached_dist.local_refresh(hop, feats16, FANOUT, agg_func, rank,
+                                      world)
+        return cached.cached_epoch_reuse(step, params, x_local, *c, hop,
+                                         batches, batch_labels)
+
+    wall, busy = epoch_profile(tag, epoch, steps)
+    summary = {"refresh_ms": refresh_ms, "ms_per_step": ms,
+               "edges_per_s": edges / ms * 1e3, "epoch_ms": wall,
+               "busy_ms": busy, "steps": steps}
+    log(f"{tag} beside (e): "
+        f"{json.dumps({'n': summary, 'e': ref_run['summary']})}")
+    # (e) and (n) epochs in turns in this process (phase 9's (e) ran in
+    # another state of it), each from its own params
+    e_params, e_step = bf16_params(cfg, dev), cached.CachedStep(
+        cfg, fanout=FANOUT, lr=LR)
+
+    def e_epoch():
+        c = cached.refresh_leaf_cache(hop, feats16, FANOUT, agg=agg_func)
+        return cached.cached_epoch_reuse(e_step, e_params, feats16, *c, hop,
+                                         batches, batch_labels)
+
+    te, tn = in_turns(e_epoch, epoch, 2)
+    summary["turns_ms"] = {"e": statistics.median(te),
+                           "n": statistics.median(tn)}
+    log(f"{tag} epochs in turns (e, n, n, e) x 2, host ms: (e) "
+        f"{' '.join(f'{x:.3f}' for x in te)}; (n) "
+        f"{' '.join(f'{x:.3f}' for x in tn)}")
+    # where (n)'s extra wall time goes on the host, beside (e)'s
+    summary["host_profile"] = {"e": host_profile(f"{tag} (e) epoch", e_epoch),
+                               "n": host_profile(f"{tag} (n) epoch", epoch)}
+
+    # -------- one more step: the h1_full gather and its incoming gradient
+    seen = []
+    with keep_gathers(cached_dist, seen):
+        step(params, x_local, *cache, hop, batches[0], batch_labels[0])
+    torch.cuda.synchronize()
+    table, idx, g = seen[0]
+    assert g.dtype == torch.bfloat16 and idx.shape[0] == b * (FANOUT + 1)
+    collective_ms(tag, table)
+    rows += [gather_row(f"bf16 cached_dist (n) rows of the all-gathered "
+                        f"h1_full, {idx.shape[0]} ids over "
+                        f"{list(table.shape)}", table, idx,
+                        launches["gather_rows"]),
+             scatter_row(f"bf16 cached_dist (n) h1_full backward, "
+                         f"{idx.shape[0]} rows into {list(table.shape)}", g,
+                         idx, table.shape[0], launches["scatter_rows"])]
+    return summary, rows
+
+
+def dist_batches(ds, b_loc: int, steps: int, dev: torch.device,
+                 pair_sampler=None) -> tuple:
+    """``steps`` halo-pipeline batches of b_loc train nodes a rank (sup, or
+    plus_unsup with ``pair_sampler``), built on the host as the trainer
+    builds them, and this rank's rows on the device; with the host ms of
+    each build."""
+    rank, world = comm.rank_world()
+    order = np.random.RandomState(SEED).permutation(ds.train_nodes)
+    built, host_ms = [], []
+    for t in range(steps):
+        batch = order[t * world * b_loc:(t + 1) * world * b_loc].reshape(
+            world, b_loc)
+        t0 = time.perf_counter()
+        if pair_sampler is None:
+            db, pairs = distributed.build_dist_batch(
+                ds.graph, ds.labels, batch, 2, FANOUT, seed=SEED + t), None
+        else:
+            db, pairs = distributed.build_dist_unsup_batch(
+                ds.graph, ds.labels, pair_sampler, batch, 2, FANOUT, 100,
+                seed=SEED + t)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        args = distributed.dist_batch_to_device(db, dev)
+        args["x0"] = torch.from_numpy(db.x0_ids[rank]).to(dev)
+        args = ((args,) if pairs is None else
+                (args, distributed.pairs_to_device(pairs, dev)))
+        built.append((db, args))
+    return built, host_ms
+
+
+def dist_counted(tag: str, step, params: dict, feats_local, built: list,
+                 want: dict) -> list:
+    """The halo pipeline's counted steps: each recorded for the lockstep;
+    returns the records."""
+    records = []
+    agg.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _, args in built:
+        before = snapshot(params)
+        loss = step(params, feats_local, *args)
+        records.append({"before": before, "after": snapshot(params),
+                        "args": args, "loss": loss})
+    torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    losses = [float(r["loss"]) for r in records]
+    log(f"{tag} main path: {len(built)} steps in "
+        f"{time.perf_counter() - t0:.3f} s; launches {launches}; predicted "
+        f"from the code {want}; losses "
+        + " ".join(f"{x:.6f}" for x in losses))
+    assert launches == want, (launches, want)
+    assert np.isfinite(losses).all()
+    return records
+
+
+def dist_halo_o(ds, feats16, dev: torch.device) -> tuple:
+    """(o) dist sup MEAN bf16, b_loc DIST_O_B, the pretransform on: the
+    counted steps (make_dist_sup_step), their lockstep against the plain
+    versions, dist_step_ms against the local oracle's (identical frontiers,
+    no exchange), the epoch's idle share, and kernel rows of the exchange's
+    gathers and their bf16 backward."""
+    cfg = bf16_config()
+    rank, world = comm.rank_world()
+    tag = (f"[dist o: dist sup MEAN bf16 b_loc {DIST_O_B}, pretransform, "
+           f"world {world} {torch.distributed.get_backend()}]")
+    params = bf16_params(cfg, dev)
+    rows_per = halo.partition_bounds(NODES, world)
+    feats_local = feats16[rank * rows_per:(rank + 1) * rows_per]
+    built, host_ms = dist_batches(ds, DIST_O_B, DIST_O_STEPS, dev)
+    log(f"{tag} host build_dist_batch (every rank's frontiers and the halo "
+        f"plan) ms: median {statistics.median(host_ms):.3f}, min "
+        f"{min(host_ms):.3f}, max {max(host_ms):.3f}; halo cap "
+        f"{built[0][0].requests.shape[-1]}, local share of slots "
+        f"{float(built[0][0].addr_is_local.mean()):.4f}")
+    step = distributed.make_dist_sup_step(cfg, lr=LR)
+    steps = DIST_O_STEPS
+    # a step: the exchange's three row gathers (served, received, local),
+    # two gather_mean layers, and in bf16 a scatter_rows for each gather's
+    # gradient: the three of the exchange, both aggregates' and both
+    # self-row gathers' (take_rows)
+    want = {"gather_mean": 2 * steps, "gather_max": 0, "pair_scores": 0,
+            "gather_rows": 3 * steps, "scatter_rows": 7 * steps}
+    # the exchange's launches by shape: its gathers, and their backward
+    # (GatherRows' scatter_rows, keyed by the table it scatters into)
+    by_shape = collections.Counter()
+    with launches_by_call(halo, "gather_rows", row_key, by_shape), \
+            launches_by_call(gather, "scatter_rows", lambda g, idx, m: (
+                (m, g.shape[1]), g.shape[1], (g.shape[0],)), by_shape):
+        records = dist_counted(tag, step, params, feats_local, built, want)
+    log(f"{tag} the exchange's launches by (kernel, (table shape, row "
+        f"stride, ids shape)): {dict(by_shape)}")
+    # the oracle's first step from the same params: the same loss, bit for
+    # bit (at world 1 the exchange only moves zero gradients besides)
+    ref = _leaf_params(params, dev)
+    with torch.no_grad():
+        for p, q in zip(tree_leaves(ref), records[0]["before"]):
+            p.copy_(q)
+    with oracle_exchange():
+        oracle_loss = float(step(ref, feats_local, *built[0][1]))
+    log(f"{tag} the local oracle's first step: loss {oracle_loss!r}, the "
+        f"exchange's {float(records[0]['loss'])!r}")
+    if world == 1:
+        assert oracle_loss == float(records[0]["loss"])
+    replay_lockstep(tag, step, params, records, plain_dist,
+                    lambda rec: (feats_local, *rec["args"]))
+    del records
+
+    edges = dense.edges_per_batch(world * DIST_O_B, 2, FANOUT)
+    dist_ms = timed_steps(f"{tag} dist_step_ms", lambda i: step(
+        params, feats_local, *built[i][1]), steps, edges)
+    with oracle_exchange():
+        oracle_ms = timed_steps(f"{tag} local oracle", lambda i: step(
+            params, feats_local, *built[i][1]), steps, edges)
+    log(f"{tag} dist_step_ms {dist_ms:.6f}, local_oracle_ms "
+        f"{oracle_ms:.6f}: halo overhead {dist_ms - oracle_ms:.6f} ms "
+        f"({(dist_ms - oracle_ms) / oracle_ms:.2%}); at world {world} the "
+        f"plan is all-local, so this is the exchange's fixed cost (two "
+        f"all_to_alls, the request tables, the three gathers and the "
+        f"select), not a cost of remote rows")
+    wall, busy = epoch_profile(tag, lambda: [step(
+        params, feats_local, *args) for _, args in built], steps)
+
+    # -------- one more step: the exchange's gathers and their gradients
+    seen = []
+    with keep_gathers(halo, seen):
+        step(params, feats_local, *built[0][1])
+    torch.cuda.synchronize()
+    rows = []
+    wire = built[0][1][0]["requests"].numel()      # P * cap
+    for table, idx, g in seen:
+        what = ("rows out of the received buffer" if table.shape[0] == wire
+                else "serving the requests" if idx.shape[0] == wire
+                else "local rows")
+        assert g.dtype == torch.bfloat16
+        n_gather = by_shape[("gather_rows", row_key(table, idx))]
+        n_scatter = by_shape[("scatter_rows", (tuple(table.shape),
+                                               table.shape[1],
+                                               tuple(idx.shape)))]
+        assert n_gather > 0 and n_scatter > 0, (what, dict(by_shape))
+        rows.append(gather_row(f"bf16 dist (o) halo {what}, {idx.shape[0]} "
+                               f"ids over {list(table.shape)}", table, idx,
+                               n_gather))
+        rows.append(scatter_row(f"bf16 dist (o) halo {what} backward, "
+                                f"{idx.shape[0]} rows into "
+                                f"{list(table.shape)}", g, idx,
+                                table.shape[0], n_scatter))
+    summary = {"dist_step_ms": dist_ms, "local_oracle_ms": oracle_ms,
+               "halo_overhead_ms": dist_ms - oracle_ms,
+               "halo_overhead_pct": (dist_ms - oracle_ms) / oracle_ms * 100,
+               "edges_per_s": edges / dist_ms * 1e3, "epoch_ms": wall,
+               "busy_ms": busy, "host_build_ms": statistics.median(host_ms)}
+    return summary, rows
+
+
+def dist_unsup_p(ds, dev: torch.device) -> tuple:
+    """(p) dist plus_unsup MEAN f32, b_loc DIST_P_B: the counted steps
+    (make_dist_unsup_step, the pair_scores block), float32 lockstep, and
+    the score block's kernel row at the step's shape."""
+    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN)
+    rank, world = comm.rank_world()
+    tag = (f"[dist p: dist plus_unsup MEAN f32 b_loc {DIST_P_B}, world "
+           f"{world} {torch.distributed.get_backend()}]")
+    gen = torch.Generator().manual_seed(SEED)
+    params = _leaf_params({"sage": init_graphsage(gen, cfg),
+                           "clf": init_classifier(gen, HIDDEN, CLASSES)}, dev)
+    rows_per = halo.partition_bounds(NODES, world)
+    feats_local = torch.from_numpy(ds.features[
+        rank * rows_per:(rank + 1) * rows_per]).to(dev)
+    ps = PairSampler(ds.graph, ds.train_nodes)
+    built, host_ms = dist_batches(ds, DIST_P_B, DIST_P_STEPS, dev, ps)
+    log(f"{tag} host build_dist_unsup_batch ms: median "
+        f"{statistics.median(host_ms):.3f} ({ps.negative_mode} negatives)")
+    step = distributed.make_dist_unsup_step(
+        cfg, learn_method="plus_unsup", lr=LR, q=ps.q, margin=ps.margin)
+    steps = DIST_P_STEPS
+    blocks = 0
+    for db, (t, pairs) in built:
+        b, u = pairs["target_rows"].shape[0], db.x0_ids.shape[1] // (
+            FANOUT + 1) ** 2
+        blocks += sddmm.dense_block_pays(
+            b, u, pairs["pos_q"].numel() + pairs["neg_q"].numel(), HIDDEN)
+    want = {"gather_mean": 2 * steps, "gather_max": 0, "pair_scores": blocks,
+            "gather_rows": 3 * steps, "scatter_rows": 0}
+    assert blocks > 0
+    records = dist_counted(tag, step, params, feats_local, built, want)
+    replay_lockstep(tag, step, params, records, plain_dist,
+                    lambda rec: (feats_local, *rec["args"]),
+                    dtype="float32")
+    del records
+    seen = []
+
+    def scores_rec(emb, target_rows, eps=1e-8):
+        seen.append((emb.detach(), target_rows))
+        return pair_scores(emb, target_rows, eps)
+
+    pair_scores = sddmm.pair_scores
+    with patched(sddmm, pair_scores=scores_rec):
+        step(params, feats_local, *built[0][1])
+    torch.cuda.synchronize()
+    (emb, target_rows), = seen
+    return [scores_row(f"dist (p) plus_unsup step, {target_rows.shape[0]} "
+                       f"x {emb.shape[0]}, H {emb.shape[1]}", emb,
+                       target_rows, blocks)]
+
+
+def sharded_serving_q(ds, dev: torch.device) -> tuple:
+    """(q) full_graph_embeddings_sharded, MEAN f32 and MAX bf16, against
+    full_graph_embeddings on the same inputs: launches, the tables, and
+    embed_all_ms; kernel rows at layer 1."""
+    rank, world = comm.rank_world()
+    pad = ds.graph.to_padded_sampled(WIDTH, np.random.RandomState(99))
+    feats = torch.from_numpy(ds.features).to(dev)
+    pad = PaddedAdjacency(neighbors=torch.from_numpy(pad.neighbors).to(dev),
+                          degrees=torch.from_numpy(pad.degrees).to(dev),
+                          true_degrees=pad.true_degrees,
+                          truncated=pad.truncated)
+    summaries, rows = {}, []
+    for agg_func, dtype in (("MEAN", "float32"), ("MAX", "bfloat16")):
+        tag = (f"[dist q: full_graph_embeddings_sharded {agg_func} {dtype}, "
+               f"world {world}]")
+        cfg = GraphSageConfig(num_layers=2, input_size=FEATS,
+                              out_size=HIDDEN, agg_func=agg_func,
+                              compute_dtype=dtype)
+        gen = torch.Generator().manual_seed(824)
+        sage = init_graphsage(gen, cfg)
+        run_ = lambda: infer.full_graph_embeddings_sharded(
+            sage, cfg, feats, pad, device=dev, fetch=False)
+        agg.reset_launches()
+        by_shape = collections.Counter()
+        key = lambda embed, idx, mask: row_key(embed, idx)
+        with launches_by_call(infer, "mean_aggregate", key, by_shape), \
+                launches_by_call(infer, "max_aggregate", key, by_shape):
+            got = run_()
+        torch.cuda.synchronize()
+        launches = dict(agg.LAUNCHES)
+        name = "gather_mean" if agg_func == "MEAN" else "gather_max"
+        want = {k: 0 for k in launches}
+        want[name] = cfg.num_layers
+        assert launches == want, (launches, want)
+        single = infer.full_graph_embeddings(sage, cfg, feats, pad,
+                                             device=dev, fetch=False)
+        err = check_close(f"{tag} vs full_graph_embeddings", got, single)
+        equal = torch.equal(got, single)
+        times_ = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_()
+            torch.cuda.synchronize()
+            times_.append((time.perf_counter() - t0) * 1e3)
+        ms = statistics.median(times_)
+        log(f"{tag} launches {launches}, by (kernel, (table shape, row "
+            f"stride, ids shape)) {dict(by_shape)}; table vs "
+            f"full_graph_embeddings: "
+            f"max abs error {err}, equal bit for bit: {equal}; embed_all_ms "
+            f"{ms:.6f} (median of 20; min {min(times_):.6f}, max "
+            f"{max(times_):.6f})")
+        busy = profile_device(run_, ms)
+        summaries[f"{agg_func} {dtype}"] = {"embed_all_ms": ms,
+                                            "busy_ms": busy, "equal": equal}
+        params = infer.params_from_jax(sage, dev)
+        h = feats.to(graphsage.compute_dtype(cfg))
+        idx, mask = infer._slot_table(pad.neighbors, pad.degrees, cfg.gcn)
+        # MEAN's two layers gather at one shape (z[:, H:] of [N, 2H]),
+        # MAX's layer 1 over the raw table
+        if agg_func == "MEAN":
+            table = mean_pretransform(params["layers"][0]["weight"],
+                                      h)[:, HIDDEN:]
+            what = (f"f32 sharded serving (q) layers 1-2, idx "
+                    f"{list(idx.shape)} over z[:, H:] {list(table.shape)}")
+        else:
+            table = h
+            what = (f"bf16 sharded serving (q) layer 1, idx "
+                    f"{list(idx.shape)} over {list(table.shape)}")
+        n = by_shape[(name, row_key(table, idx))]
+        assert n > 0, dict(by_shape)
+        rows.append(kernel_row(name, what, table, idx, mask, n))
+    log(json.dumps({"sharded_serving": summaries}))
+    return summaries, rows
+
+
+def run_torchrun(args: list, timeout_s: float = 600):
+    """``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    graphsage_torch.cli ARGS`` from the repository root."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m", "graphsage_torch.cli", *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=timeout_s,
+                          env={**os.environ, "PYTHONPATH": root})
+    log(f"[dist r] torchrun --standalone --nproc_per_node 1 -m "
+        f"graphsage_torch.cli {' '.join(args)}: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.3f} s")
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"torchrun exited {proc.returncode}")
+    return proc
+
+
+def cli_dist_r(dev: torch.device) -> dict:
+    """(r) the CLI under torchrun at world 1, both distributed pipelines, on
+    powerlaw:2000:10000 in bf16: 3 epochs with --export, served through
+    InferenceSession.from_bundle; then resumed from its epoch-0
+    checkpoint, whose epochs 1-2 must equal the unbroken run's bit for bit
+    (every gradient scatter of a bf16 run is scatter_rows)."""
+    import glob
+    import shutil
+
+    root = os.path.join(BUILD_DIR, "chip_smoke_dist")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    from graphsage_torch.data import load_dataset
+    ds = load_dataset("powerlaw:2000:10000", seed=824)
+    pad = ds.graph.to_padded()
+    out = {}
+    for pipeline, extra in (("dist", []),
+                            ("cached_dist", ["--table_cap", "8",
+                                             "--no_extend"])):
+        base = DIST_CLI + ["--pipeline", pipeline, *extra]
+
+        def run(tag, *more):
+            metrics = os.path.join(root, f"{pipeline}_{tag}.jsonl")
+            proc = run_torchrun(base + ["--checkpoint_dir", os.path.join(
+                root, f"{pipeline}_{tag}"), "--metrics", metrics, *more])
+            recs = read_jsonl(metrics)
+            f1 = {r["epoch"]: r["val_f1"] for r in recs
+                  if r["event"] == "eval"}
+            return proc, {r["epoch"]: (r["mean_loss"], f1.get(r["epoch"]))
+                          for r in recs if r["event"] == "epoch"}
+
+        bundle = os.path.join(root, f"{pipeline}_bundle")
+        proc, epochs = run("unbroken", "--export", bundle)
+        assert proc.stdout.count("Best validation F1") == 1
+        ckpt = glob.glob(os.path.join(root, f"{pipeline}_unbroken",
+                                      "model_best_r_ep0_*"))
+        assert len(ckpt) == 1, ckpt
+        proc, resumed = run("resumed", "--resume", ckpt[0])
+        assert "resumed from" in proc.stdout
+        equal = resumed == {e: epochs[e] for e in (1, 2)}
+        log(f"[dist r] {pipeline}: epochs (mean_loss, val F1) unbroken "
+            f"{epochs}, resumed {resumed}: epochs 1-2 equal bit for bit: "
+            f"{equal}")
+        assert equal
+        params, mcfg, _, meta = infer.load_bundle(bundle)
+        assert mcfg.compute_dtype == "bfloat16"
+        sess = infer.InferenceSession.from_bundle(bundle, ds.features, pad,
+                                                  device=dev)
+        table = sess.embeddings()
+        want = infer.full_graph_embeddings(params["sage"], mcfg,
+                                           ds.features, pad, device=dev)
+        assert np.array_equal(table, want)
+        f1 = micro_f1(ds.labels[ds.val_nodes], sess.predict(ds.val_nodes))
+        log(f"[dist r] {pipeline}: bundle ({meta['params']} params, epoch "
+            f"{meta['epoch']}) served through from_bundle, equal to "
+            f"full_graph_embeddings; val micro-F1 {f1:.6f}")
+        out[pipeline] = {"epochs": epochs, "served_val_f1": f1}
+    return out
+
+
+def dist_phase(ds, runs: dict, dev: torch.device, phase_mark) -> list:
+    """Phase 11: distribution at world 1 on NCCL: (n) cached_dist, (o) and
+    (p) the halo pipeline, (q) sharded serving, then (r) the CLI under
+    torchrun; returns the kernel rows."""
+    dev = multihost.initialize(dev)
+    rank, world = comm.rank_world()
+    log(f"dist: process group rank {rank} of {world}, backend "
+        f"{torch.distributed.get_backend()}, device {dev}")
+    rows, summaries = [], {}
+    try:
+        feats16 = torch.from_numpy(ds.features).to(dev, torch.bfloat16)
+        pad = ds.graph.to_padded_sampled(TABLE_CAP,
+                                         np.random.RandomState(SEED))
+        tables = (torch.from_numpy(pad.neighbors).to(dev),
+                  torch.from_numpy(pad.degrees).to(dev))
+        labels = torch.from_numpy(ds.labels.astype(np.int32)).to(dev)
+        for label in ("e", "h"):
+            summaries[f"n on {label}"], n_rows = dist_cached_n(
+                label, feats16, tables, labels, runs[label], dev)
+            rows.extend(n_rows)
+        phase_mark("phase 11 (n): cached_dist")
+        summaries["o"], o_rows = dist_halo_o(ds, feats16, dev)
+        rows.extend(o_rows)
+        del feats16, tables, labels
+        phase_mark("phase 11 (o): dist bf16")
+        rows.extend(dist_unsup_p(ds, dev))
+        phase_mark("phase 11 (p): dist plus_unsup")
+        summaries["q"], q_rows = sharded_serving_q(ds, dev)
+        rows.extend(q_rows)
+        phase_mark("phase 11 (q): sharded serving")
+    finally:
+        multihost.shutdown()
+    torch.cuda.empty_cache()
+    summaries["r"] = cli_dist_r(dev)
+    log(json.dumps({"dist": summaries}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2605,12 +3408,16 @@ def run(dev: torch.device) -> int:
     rows.extend(microbench_rows(dev, total))
     phase_done("phase 8 (microbench)")
 
-    rows.extend(bf16_phase(ds, train_ds, dev, phase_done))
+    bf16_rows, bf16_runs = bf16_phase(ds, train_ds, dev, phase_done)
+    rows.extend(bf16_rows)
     phase_done("phase 9 (bf16 training)")
 
-    del ds, train_ds
+    del train_ds
     resume_phase(dev)
     phase_done("phase 10 (checkpoints and resume)")
+
+    rows.extend(dist_phase(ds, bf16_runs, dev, phase_done))
+    phase_done("phase 11 (distribution)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

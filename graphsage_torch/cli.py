@@ -1,6 +1,7 @@
-"""Command-line training: the compact and the leaf-cached pipelines.
+"""Command-line training: the compact, leaf-cached and distributed
+pipelines.
 
-Port of the compact and cached paths of ``graphsage_tpu/cli.py``, with the
+Port of ``graphsage_tpu/cli.py``, with the
 reference CLI's flags (reference src/main.py:12-27): ``--dataSet --agg_func
 --epochs --b_sz --seed --gcn --learn_method --unsup_loss --max_vali_f1
 --name`` (``--cuda`` is accepted and ignored; ``--device`` chooses).
@@ -22,8 +23,22 @@ forward.  ``--compute_dtype bfloat16`` trains either pipeline in bfloat16
 with float32 master params; the ``--export`` bundle records the compute
 dtype, and ``graphsage_torch.infer`` serves it in that dtype.  The dense
 pipeline (``graphsage_torch.train.dense``) is a library API, with no
-``--pipeline`` of its own, as in the JAX package.  ``--pipeline
-cached_dist|dist`` is not ported yet and is refused (ROADMAP A item 16).
+``--pipeline`` of its own, as in the JAX package.
+
+``--pipeline cached_dist`` (``train.CachedDistTrainer``, the row-sharded
+cached pipeline) and ``--pipeline dist`` (``train.DistTrainer``, the
+edge-partitioned halo pipeline) run one process a rank: under ``torchrun``
+the world size and the rendezvous come from the environment, and without
+it the run is a world of 1 (``parallel.multihost.initialize``: NCCL on
+the card, gloo with ``--device cpu``).  ``--b_sz`` is the global batch:
+``dist`` trains ``max(1, b_sz // world)`` rows a rank, ``cached_dist``
+rounds it up to a multiple of the world size.  Rank 0 alone prints,
+checkpoints and exports; ``--resume`` restores the replicated params (and
+the cached_dist sampler's key generator) on every rank; a wedged fetch
+exits 17 from whichever rank hits it.
+
+    torchrun --standalone --nproc_per_node 2 -m graphsage_torch.cli \
+        --dataSet powerlaw:2000:10000 --device cpu --pipeline dist
 
 Checkpoints and resume: on every val improvement the run writes
 ``<--checkpoint_dir>/model_best_<name>_ep<E>_<testF1>`` (the JAX package's
@@ -55,11 +70,6 @@ import time
 # the exit code of a run whose device fetch wedged: restart and resume
 WEDGE_EXIT = 17
 
-_NOT_PORTED = {
-    "cached_dist": "the sharded cached pipeline (ROADMAP A item 16)",
-    "dist": "the edge-partitioned pipeline (ROADMAP A item 16)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -88,7 +98,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["compact", "cached", "cached_dist", "dist"],
                    help="compact = the per-step reference-parity path; "
                         "cached = the leaf-cached path (LSTM needs "
-                        "--lstm_hybrid)")
+                        "--lstm_hybrid); cached_dist = the cached path "
+                        "row-sharded over the ranks; dist = the "
+                        "edge-partitioned halo path (torchrun for more "
+                        "than one rank)")
     p.add_argument("--table_cap", type=int, default=None,
                    help="cached pipeline: cap the padded adjacency width "
                         "(a uniform subset per row); None = full degree")
@@ -144,16 +157,30 @@ def run(argv=None):
     the best-val snapshot ({"params", "epoch", "test_f1"}) that
     ``--export`` ships."""
     args = build_parser().parse_args(argv)
-    if args.pipeline not in ("compact", "cached"):
-        raise NotImplementedError(f"--pipeline {args.pipeline}: "
-                                  f"{_NOT_PORTED[args.pipeline]} is not "
-                                  f"ported yet")
+    distributed = args.pipeline in ("cached_dist", "dist")
+    device, rank, world, owned = args.device, 0, 1, False
+    if distributed:
+        import torch.distributed as dist
 
+        from graphsage_torch.parallel import comm, multihost
+        owned = not dist.is_initialized()   # a caller's group stays up
+        device = multihost.initialize(args.device)
+        rank, world = comm.rank_world()
+    try:
+        return _run(args, device, rank, world)
+    finally:
+        if owned:
+            multihost.shutdown()
+
+
+def _run(args, device, rank: int, world: int):
     from graphsage_torch.convert import params_to_numpy
     from graphsage_torch.data import load_dataset
     from graphsage_torch.infer import export_bundle
     from graphsage_torch.models import GraphSageConfig
-    from graphsage_torch.train import CachedTrainer, Trainer, TrainConfig
+    from graphsage_torch.train import (CachedDistTrainer, CachedTrainer,
+                                       DistTrainConfig, DistTrainer, Trainer,
+                                       TrainConfig)
     from graphsage_torch.train.trainer import _leaf_params
     from graphsage_torch.utils.checkpoint import (checkpoint_test_f1,
                                                   restore_checkpoint,
@@ -161,6 +188,9 @@ def run(argv=None):
                                                   set_generator_state)
     from graphsage_torch.utils.config import load_config
     ready = time.time()
+    # rank 0 alone prints, checkpoints and exports
+    quiet = args.quiet or rank != 0
+    metrics = args.metrics if rank == 0 else None
 
     num_layers, hidden = 2, 128  # reference src/experiments.conf:11-12
     if args.config:
@@ -174,7 +204,7 @@ def run(argv=None):
 
     kw = {"root": args.data_root} if args.data_root else {}
     ds = load_dataset(args.dataSet, seed=args.seed, **kw)
-    if ds.synthetic_features and not args.quiet:
+    if ds.synthetic_features and not quiet:
         print(f"NOTE: content file for {ds.name} absent; using synthesized "
               "features over the real graph")
     data_s = time.time() - ready
@@ -187,8 +217,8 @@ def run(argv=None):
         learn_method=args.learn_method, unsup_loss=args.unsup_loss,
         b_sz=args.b_sz, epochs=args.epochs, lr=args.lr, seed=args.seed,
         fanout=args.fanout, clf_epochs=args.clf_epochs,
-        strict_clf_eval=args.strict_clf_eval, verbose=not args.quiet,
-        metrics_path=args.metrics, refresh_every=args.refresh_every)
+        strict_clf_eval=args.strict_clf_eval, verbose=not quiet,
+        metrics_path=metrics, refresh_every=args.refresh_every)
 
     # best-val params snapshot: checkpoint_fn fires exactly on val
     # improvement, so the last snapshot is the model that reached
@@ -199,6 +229,8 @@ def run(argv=None):
         best["params"] = params_to_numpy(trainer.params)
         best["epoch"] = trainer.epoch
         best["test_f1"] = float(test_f1)
+        if rank != 0:
+            return
         path = os.path.join(
             args.checkpoint_dir,
             f"model_best_{args.name}_ep{trainer.epoch}_{test_f1:.4f}")
@@ -210,19 +242,29 @@ def run(argv=None):
         except OSError as e:  # keep training if the write fails
             print(f"checkpoint failed: {e}", flush=True)
             return
-        if not args.quiet:
+        if not quiet:
             print(f"checkpointed {path}")
 
     t0 = time.time()
-    if args.pipeline == "cached":
-        trainer = CachedTrainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
-                                table_cap=args.table_cap,
-                                extend_batches=not args.no_extend,
-                                lstm_hybrid=args.lstm_hybrid,
-                                device=args.device)
+    if args.pipeline == "dist":
+        dcfg = DistTrainConfig(
+            learn_method=args.learn_method, unsup_loss=args.unsup_loss,
+            b_loc=max(1, args.b_sz // world), epochs=args.epochs,
+            lr=args.lr, fanout=args.fanout, seed=args.seed,
+            clf_epochs=args.clf_epochs, verbose=not quiet,
+            metrics_path=metrics)
+        trainer = DistTrainer(ds, mcfg, dcfg, checkpoint_fn=checkpoint_fn,
+                              device=device)
+    elif args.pipeline in ("cached", "cached_dist"):
+        cls = (CachedDistTrainer if args.pipeline == "cached_dist"
+               else CachedTrainer)
+        trainer = cls(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
+                      table_cap=args.table_cap,
+                      extend_batches=not args.no_extend,
+                      lstm_hybrid=args.lstm_hybrid, device=device)
     else:
         trainer = Trainer(ds, mcfg, tcfg, checkpoint_fn=checkpoint_fn,
-                          device=args.device)
+                          device=device)
     trainer.max_vali_f1 = args.max_vali_f1
     setup_s = time.time() - t0
 
@@ -232,8 +274,8 @@ def run(argv=None):
             args.resume, trainer.params, with_generator_state=True)
         generator = _sampler_generator(trainer)
         if gen_state is not None and generator is not None:
-            # the cached pipeline's device sampler: the resumed run draws
-            # the unbroken run's samples
+            # the cached pipelines' sampler: the resumed run draws the
+            # unbroken run's samples
             set_generator_state(generator, gen_state)
         trainer.params = _leaf_params(params, trainer.device)
         # the checkpoint records the epoch it was written in; training
@@ -249,27 +291,29 @@ def run(argv=None):
                             ready_wall=ready, data_s=data_s,
                             setup_s=setup_s, restore_s=time.time() - t0,
                             wall=time.time())
-        if not args.quiet:
+        if not quiet:
             print(f"resumed from {args.resume} after epoch {epoch}, "
                   f"best val F1 {best_f1:.4f}")
 
-    if args.learn_method == "sup":
-        print("GraphSage with Supervised Learning")
-    elif args.learn_method == "plus_unsup":
-        print("GraphSage with Supervised Learning plus Net Unsupervised "
-              "Learning")
-    else:
-        print("GraphSage with Net Unsupervised Learning")
+    if rank == 0:
+        if args.learn_method == "sup":
+            print("GraphSage with Supervised Learning")
+        elif args.learn_method == "plus_unsup":
+            print("GraphSage with Supervised Learning plus Net "
+                  "Unsupervised Learning")
+        else:
+            print("GraphSage with Net Unsupervised Learning")
 
     fit_or_exit(trainer)
-    print(f"Best validation F1: {trainer.max_vali_f1:.4f}")
-    if args.export:
+    if rank == 0:
+        print(f"Best validation F1: {trainer.max_vali_f1:.4f}")
+    if args.export and rank == 0:
         meta = {"dataset": ds.name, "name": args.name,
                 "best_val_f1": float(trainer.max_vali_f1),
                 "epoch": best["epoch"], "test_f1": best["test_f1"],
                 "params": "best-val"}
         if (args.lstm_hybrid and args.agg_func == "LSTM"
-                and args.pipeline == "cached"):
+                and args.pipeline in ("cached", "cached_dist")):
             # the trained topology is MEAN at layer 1 and LSTM above;
             # InferenceSession.from_bundle reads this and serves it
             meta["lstm_hybrid"] = True
@@ -279,16 +323,19 @@ def run(argv=None):
             meta["params"] = "final-epoch"
         export_bundle(args.export, export_params, mcfg, ds.num_classes,
                       meta=meta)
-        if not args.quiet:
+        if not quiet:
             print(f"exported serving bundle to {args.export} "
                   f"({meta['params']} params)")
     return trainer, best
 
 
 def _sampler_generator(trainer):
-    """The cached pipeline's device sampler generator, whose state a
-    checkpoint keeps (None for the compact pipeline, whose sampling is all
-    on the host RandomState)."""
+    """The generator whose state a checkpoint keeps: the cached pipeline's
+    device sampler's, cached_dist's replicated key generator (the same on
+    every rank), None for the compact and dist pipelines, whose sampling is
+    all on the host RandomState."""
+    if hasattr(trainer, "key_generator"):
+        return trainer.key_generator
     return getattr(getattr(trainer, "hop", None), "generator", None)
 
 

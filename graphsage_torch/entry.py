@@ -14,7 +14,13 @@ generator seeded with 1, where JAX's forward takes ``PRNGKey(1)``.
     fn, args = entry()          # on the card; entry(device="cpu") on the CPU
     embs = fn(*args)            # [16, 32]
 
-``dryrun_multichip`` waits for the distributed port (ROADMAP A item 16).
+``dryrun_multichip`` waits only for its first program, the GSPMD data- and
+tensor-parallel step over ``parallel/mesh.py``'s ``model`` axis, which the
+port does not have yet.  Its other three programs (the halo step, the
+row-sharded cached epoch and sharded serving) are the port's
+``train.distributed``, ``train.cached_dist`` and
+``infer.full_graph_embeddings_sharded``, whose tests hold them against the
+JAX package's and against single-process replays.
 """
 
 from __future__ import annotations

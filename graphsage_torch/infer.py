@@ -51,6 +51,7 @@ from graphsage_torch.models.layers import (classifier_apply,
                                            sage_layer_apply)
 from graphsage_torch.models.lstm_agg import lstm_aggregate
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
+from graphsage_torch.parallel.comm import all_gather_no_grad, rank_world
 
 # Working-set budget for one block's [block, S, gather_dim] gather: the
 # plain versions' on the CPU, and the LSTM layers' on the card.
@@ -103,16 +104,18 @@ def _cat_rows(parts: list[torch.Tensor]) -> torch.Tensor:
 
 def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
                 h: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-                block: int, agg_func: str) -> torch.Tensor:
-    """One full-table layer aggregated with ``agg_func``: h [N, Din] ->
-    [N, H].
-
-    idx/mask: [N, S] aggregation slots (self slot prepended by the caller in
-    gcn mode).  The aggregation runs over row blocks of ``block`` rows; on
+                block: int, agg_func: str,
+                self_h: torch.Tensor | None = None) -> torch.Tensor:
+    """One full-table layer aggregated with ``agg_func``: [N, H] for the N
+    rows of idx/mask, [N, S] aggregation slots into h's rows (self slot
+    prepended by the caller in gcn mode).  The rows' own inputs are h
+    (``self_h`` for MAX and LSTM when they are not h's first N rows: a
+    shard's).  The aggregation runs over row blocks of ``block`` rows; on
     the card the caller passes :func:`card_block`'s."""
     w = params["layers"][layer]["weight"]
     hdim = w.shape[0]
-    n = h.shape[0]
+    n = idx.shape[0]
+    self_h = h if self_h is None else self_h
     rows = [slice(r0, min(r0 + block, n)) for r0 in range(0, n, block)]
 
     if agg_func == "MEAN":
@@ -136,7 +139,7 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
             else:
                 agg = lstm_aggregate(params["agg"][layer], h, idx[r],
                                      mask[r])
-            self_rows = agg if cfg.gcn else h[r]
+            self_rows = agg if cfg.gcn else self_h[r]
             out.append(sage_layer_apply(params["layers"][layer], self_rows,
                                         agg, gcn=cfg.gcn))
         return _cat_rows(out)
@@ -145,13 +148,14 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
 
 
 def _slot_table(neighbors: torch.Tensor, degrees: torch.Tensor,
-                gcn: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                gcn: bool, first: int = 0) -> tuple[torch.Tensor,
+                                                    torch.Tensor]:
     """The aggregation slots of every node: idx [N, S] int32 and mask
     [N, S] float32, both contiguous (S = P, or P + 1 with gcn's self slot
-    first)."""
+    first).  ``first``: the node id of row 0 (a shard's rows)."""
     n, p = neighbors.shape
     dev = neighbors.device
-    own = torch.arange(n, dtype=torch.int32, device=dev)
+    own = torch.arange(first, first + n, dtype=torch.int32, device=dev)
     slot = torch.arange(p, dtype=torch.int32, device=dev)
     valid = slot[None, :] < degrees[:, None]
     # self never aggregates with itself: the reference removes self from
@@ -223,6 +227,70 @@ def full_graph_embeddings(params: dict, cfg: GraphSageConfig,
     with torch.no_grad():
         out = _full_embed(params, cfg, feats, _as_tensor(pad.neighbors, dev),
                           _as_tensor(pad.degrees, dev), block, lstm_hybrid)
+    if not fetch:
+        return out
+    return out.float().cpu().numpy()
+
+
+def full_graph_embeddings_sharded(params: dict, cfg: GraphSageConfig,
+                                  feats, pad: PaddedAdjacency,
+                                  group=None, lstm_hybrid: bool = False,
+                                  device: str | torch.device | None = None,
+                                  fetch: bool = True):
+    """Deterministic inference with the node rows sharded over the ranks of
+    a ``torch.distributed`` group (``graphsage_tpu/infer.py:210``); every
+    rank of the group calls it.
+
+    Per layer each rank transforms its OWN N/P rows, ``all_gather_rows``
+    the [N, ·] table and aggregates its own rows' neighbourhoods: for MEAN
+    through the pretransform, so the collective moves H-wide rows; MAX and
+    LSTM are nonlinear in the neighbours and gather the raw [N, Din] table.
+    The aggregations are the ``gather_mean`` / ``gather_max`` kernels on the
+    card, one launch a layer (LSTM in ``card_block`` row blocks).  The
+    same math as :func:`full_graph_embeddings` up to reassociation: on one
+    rank the same operations on the same tables.  ``lstm_hybrid`` runs
+    layer 1 with MEAN, as there.
+
+    Returns the whole [N, out_size] table on every rank (a last all_gather),
+    float32 numpy, or with ``fetch=False`` the on-device tensor in the
+    compute dtype."""
+    dev = _resolve_device(device)
+    rank, world = rank_world(group)
+    params = params_from_jax(params, dev)
+    n = pad.num_nodes
+    rows_per = -(-n // world)
+    lo, hi = rank * rows_per, min((rank + 1) * rows_per, n)
+    with torch.no_grad():
+        idx, mask = _slot_table(_as_tensor(pad.neighbors, dev)[lo:hi],
+                                _as_tensor(pad.degrees, dev)[lo:hi],
+                                cfg.gcn, first=lo)
+        h = torch.zeros((rows_per, feats.shape[1]), dtype=compute_dtype(cfg),
+                        device=dev)
+        h[:hi - lo] = _as_tensor(feats, dev)[lo:hi].to(h.dtype)
+        # rows past N (the last rank's padding) aggregate nothing
+        pad_rows = rows_per - (hi - lo)
+        idx = torch.cat([idx, idx.new_zeros((pad_rows, idx.shape[1]))])
+        mask = torch.cat([mask, mask.new_zeros((pad_rows, mask.shape[1]))])
+        for layer in range(cfg.num_layers):
+            agg_func = "MEAN" if lstm_hybrid and layer == 0 else cfg.agg_func
+            w = params["layers"][layer]["weight"]
+            hdim = w.shape[0]
+            if agg_func == "MEAN":
+                z_loc = mean_pretransform(w, h, gcn=cfg.gcn)
+                z = all_gather_no_grad(z_loc, group)
+                if cfg.gcn:
+                    h = torch.relu(mean_aggregate(z, idx, mask))
+                else:
+                    h = torch.relu(mean_aggregate(z[:, hdim:], idx, mask)
+                                   + z_loc[:, :hdim])
+                continue
+            block = rows_per
+            if h.is_cuda:
+                block = card_block(agg_func, rows_per, idx.shape[1],
+                                   h.shape[1], h.element_size())
+            h = _layer_full(cfg, params, layer, all_gather_no_grad(h, group),
+                            idx, mask, block, agg_func, self_h=h)
+        out = all_gather_no_grad(h, group)[:n]
     if not fetch:
         return out
     return out.float().cpu().numpy()

@@ -205,8 +205,8 @@ class CachedStep:
         """Returns the loss, a device scalar (not synchronised)."""
         ids, frontiers = sample_cached_frontiers(hop, batch, self.mcfg,
                                                  self.fanout)
-        embs = cached_forward(params, self.mcfg, feats, cache_feats,
-                              cache_count, ids, frontiers, self.fanout)
+        embs = self._encode(params, feats, cache_feats, cache_count, ids,
+                            frontiers)
         if row_mask is None:
             row_mask = torch.ones(embs.shape[0], device=embs.device)
         loss = None
@@ -218,6 +218,14 @@ class CachedStep:
                                     embs)
             sup = supervised_nll(logp, labels, row_mask)
             loss = sup if loss is None else loss + sup
+        return self._update(params, loss)
+
+    def _encode(self, params, feats, cache_feats, cache_count, ids,
+                frontiers):
+        return cached_forward(params, self.mcfg, feats, cache_feats,
+                              cache_count, ids, frontiers, self.fanout)
+
+    def _update(self, params, loss):
         apply_gradients(params, loss, ("sage", "clf"), self.lr, self.clip)
         return loss.detach()
 

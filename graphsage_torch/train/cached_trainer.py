@@ -46,7 +46,7 @@ from graphsage_torch.train.cached import (CachedStep, _check_cached,
 from graphsage_torch.train.trainer import Trainer, TrainConfig, _to_device
 from graphsage_torch.utils.obs import fetch_with_deadline
 
-_PAIR_FIELDS = ("pos_q", "pos_mask", "neg_q", "neg_mask", "node_valid",
+PAIR_FIELDS = ("pos_q", "pos_mask", "neg_q", "neg_mask", "node_valid",
                 "target_rows")
 
 
@@ -64,14 +64,14 @@ def _stack_pair_batches(pbs, b_sz: int, labels_np: np.ndarray,
     batches = np.zeros((t, u_max), np.int32)
     labels = np.zeros((t, u_max), np.int32)
     row_masks = np.zeros((t, u_max), np.float32)
-    stacked = {f: [] for f in _PAIR_FIELDS}
+    stacked = {f: [] for f in PAIR_FIELDS}
     for i, pb in enumerate(pbs):
         u = pb.unique_nodes.shape[0]
         batches[i, :u] = pb.unique_nodes
         labels[i, :pb.num_unique] = labels_np[
             pb.unique_nodes[:pb.num_unique]]
         row_masks[i, :pb.num_unique] = 1.0
-        for f in _PAIR_FIELDS:
+        for f in PAIR_FIELDS:
             arr = np.asarray(getattr(pb, f))
             b = arr.shape[0]
             if b < b_sz:  # tail batch: pad pair rows to the common B

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from graphsage_torch.parallel.comm import mean_over_ranks
+
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
@@ -34,22 +36,44 @@ def clip_by_global_norm(grads: list[torch.Tensor],
 
 
 def apply_gradients(params: dict, loss: torch.Tensor, models, lr: float,
-                    clip_norm: float) -> None:
+                    clip_norm: float, reduce=None) -> None:
     """Backward of ``loss``, then per-model clip (reference
     src/utils.py:185-186) and SGD, in place.  ``params`` maps each name in
     ``models`` to a pytree of leaf tensors; a model the loss does not reach
-    gets a zero gradient (its params stay)."""
+    gets a zero gradient (its params stay).  ``reduce`` maps the list of
+    gradients before the clip (the distributed steps' mean over ranks)."""
     leaves = {k: tree_leaves(params[k]) for k in models}
     flat = [p for k in models for p in leaves[k]]
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(flat, grads)]
+    if reduce is not None:
+        grads = reduce(grads)
     at = 0
     for k in models:
         n = len(leaves[k])
         sgd_update(leaves[k], clip_by_global_norm(grads[at:at + n],
                                                   clip_norm), lr)
         at += n
+
+
+def apply_gradients_mean(params: dict, loss: torch.Tensor, lr: float,
+                         clip_norm: float, group=None) -> torch.Tensor:
+    """The distributed steps' update (JAX's ``pmean`` of the loss inside the
+    differentiated function): the local backward of this rank's ``loss``,
+    the mean over ranks of the float32 gradients, then the per-model clip
+    and SGD of :func:`apply_gradients` on the replicated params.  Returns
+    the mean of the ranks' losses (a device scalar), which the same
+    all-reduce carries."""
+    out = {}
+
+    def reduce(grads):
+        *grads, out["loss"] = mean_over_ranks(grads + [loss.detach()], group)
+        return grads
+
+    apply_gradients(params, loss, ("sage", "clf"), lr, clip_norm,
+                    reduce=reduce)
+    return out["loss"]
 
 
 @torch.no_grad()

@@ -14,10 +14,10 @@ Port of ``graphsage_tpu/utils/obs.py``:
   auto-resume supervisor's tests (``graphsage_torch.supervise``).
 
 The CLI exits with code 17 on :class:`FetchDeadlineError`, and the
-supervisor relaunches it with ``--resume``.  The JAX module's mesh
-diagnostics wait for the port's distributed pipelines (ROADMAP A item 16);
-its ``profile`` and ``enable_nan_checks`` are reached by no entry point and
-are not ported (item 17).
+supervisor relaunches it with ``--resume``.  In place of the JAX module's
+mesh dump, ``collective_watchdog`` reports the ``torch.distributed``
+group.  Its ``profile`` and ``enable_nan_checks`` are reached by no entry
+point and are not ported (item 17).
 """
 
 from __future__ import annotations
@@ -147,14 +147,35 @@ def _deadline_passed(label: str, timeout_s: float, stream) -> None:
         f"{label} did not complete within {timeout_s:g}s")
 
 
+def _group_lines(label: str, group) -> list[str]:
+    """The process group's diagnostics (the JAX package's mesh dump): rank,
+    world, backend, this rank's device and the first collective step."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        return []
+    dev = (f"cuda:{torch.cuda.current_device()}"
+           if torch.cuda.is_available() else "cpu")
+    return [f"  process group: rank {dist.get_rank(group)} of "
+            f"{dist.get_world_size(group)}, backend "
+            f"{dist.get_backend(group)}, device {dev}; first collective "
+            f"step: {label}",
+            "  check: every rank must reach this step; a peer that never "
+            "does leaves this rank waiting in its first collective until "
+            "the group's timeout (GS_DIST_TIMEOUT_S) raises."]
+
+
 @contextlib.contextmanager
 def collective_watchdog(label: str = "first step",
-                        timeout_s: float | None = None, stream=None):
+                        timeout_s: float | None = None, stream=None,
+                        group=None):
     """Watchdog for a block that may hang with no error, such as the first
-    training step (which also loads the kernels on the card): if it has
-    not finished after ``timeout_s`` (default 300 s, env
-    ``GS_WATCHDOG_TIMEOUT_S``), a daemon timer dumps process and device
-    diagnostics to stderr.  The block itself is never interrupted.
+    training step (which also loads the kernels on the card) or the first
+    collective step of a distributed trainer: if it has not finished after
+    ``timeout_s`` (default 300 s, env ``GS_WATCHDOG_TIMEOUT_S``), a daemon
+    timer dumps process and device diagnostics to stderr, and, where a
+    ``torch.distributed`` group is formed, the group's (rank, world,
+    backend, device, ``label``).  The block itself is never interrupted.
 
     Yields a dict with a ``fired`` flag.  Cheap enough to leave on: one
     timer started and cancelled."""
@@ -169,6 +190,7 @@ def collective_watchdog(label: str = "first step",
                  f"{timeout_s:g}s.", f"  process {os.getpid()}"]
         try:
             lines.extend(_device_lines())
+            lines.extend(_group_lines(label, group))
         except Exception as e:  # the device may itself be in a bad state
             lines.append(f"  (device query failed: {e!r})")
         lines.append(

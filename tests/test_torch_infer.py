@@ -226,6 +226,80 @@ def test_lstm_sessions_and_bundles_match_jax(lstm_hybrid, tmp_path):
     np.testing.assert_array_equal(sess.predict(nodes), jsess.predict(nodes))
 
 
+# name: (agg_func, gcn, compute_dtype, lstm_hybrid)
+SHARDED = {"mean": ("MEAN", False, "float32", False),
+           "mean_gcn": ("MEAN", True, "float32", False),
+           "max": ("MAX", False, "float32", False),
+           "lstm": ("LSTM", False, "float32", False),
+           "hybrid": ("LSTM", False, "float32", True),
+           "mean_bf16": ("MEAN", False, "bfloat16", False)}
+
+
+def _sharded_model(name):
+    agg, gcn, dtype, _ = SHARDED[name]
+    cfg = JaxConfig(num_layers=2, input_size=12, out_size=8, agg_func=agg,
+                    gcn=gcn, compute_dtype=dtype)
+    return cfg, jax.device_get(jax_init_graphsage(jax.random.PRNGKey(4),
+                                                  cfg))
+
+
+@pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
+def sharded(request, tmp_path_factory):
+    """full_graph_embeddings_sharded on P gloo ranks (one process each,
+    tests/torch_dist_worker.py), over 61 nodes (not a multiple of P)."""
+    import dataclasses
+
+    from tests.torch_dist_worker import run_ranks
+
+    world = request.param
+    g, feats = _graph(n=61, extra_edges=150, seed=13)
+    pad = g.to_padded()
+    jobs = []
+    for name, (_, _, _, hybrid) in SHARDED.items():
+        cfg, params = _sharded_model(name)
+        jobs.append((name, "infer", dict(
+            cfg=dataclasses.asdict(cfg), params=params, feats=feats,
+            neighbors=pad.neighbors, degrees=pad.degrees,
+            lstm_hybrid=hybrid)))
+    out = run_ranks(jobs, world, tmp_path_factory.mktemp(f"infer{world}"))
+    return world, g, feats, out
+
+
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_sharded_serving_matches_jax_and_single_device(sharded, name):
+    """The port's row-sharded serving on P ranks against the JAX package's
+    full_graph_embeddings_sharded on the first P virtual devices and
+    against the port's single-device full_graph_embeddings: float32 at
+    F32; bfloat16 within 2 bf16 ulps + 4e-3 of JAX's
+    (tests/test_torch_bf16.py's bar) and equal to the port's own
+    single-device table bit for bit (the same operations on the same
+    rows).  Every rank returns the whole table."""
+    from jax.sharding import Mesh
+
+    world, g, feats, out = sharded
+    agg, gcn, dtype, hybrid = SHARDED[name]
+    cfg, params = _sharded_model(name)
+    pad = g.to_padded()
+    mesh = Mesh(np.asarray(jax.devices()[:world]), ("data",))
+    want = jax_infer.full_graph_embeddings_sharded(
+        params, cfg, feats, pad, mesh=mesh, lstm_hybrid=hybrid)
+    single = infer.full_graph_embeddings(params, _port_cfg(cfg), feats, pad,
+                                         lstm_hybrid=hybrid, device="cpu")
+    for r in range(world):
+        got = out[r][name]
+        assert got.shape == (61, 8) and got.dtype == np.float32
+        np.testing.assert_array_equal(got, out[0][name])
+    got = out[0][name]
+    assert np.abs(got).sum() > 0
+    if dtype == "bfloat16":
+        from tests.test_torch_bf16 import assert_emb_close
+        assert_emb_close(name, got, want)
+        np.testing.assert_array_equal(got, single)
+    else:
+        np.testing.assert_allclose(got, want, **F32)
+        np.testing.assert_allclose(got, single, **F32)
+
+
 def test_card_block_rule():
     """On the card MEAN and MAX layers aggregate all rows in one launch;
     LSTM layers take the byte budget at the layer's input width (3,483
@@ -274,7 +348,8 @@ def test_serving_cli(tmp_path, capsys):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """With jax and graphsage_tpu made unimportable, every module of the
-    port and chip_smoke.py still import."""
+    port, chip_smoke.py and the distributed tests' rank worker still
+    import."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'graphsage_tpu', 'orbax'):\n"
@@ -295,8 +370,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.models.lstm_agg, graphsage_torch.train.dense, "
         "graphsage_torch.entry, graphsage_torch.ops.scatter, "
         "graphsage_torch.utils.config, graphsage_torch.utils.checkpoint, "
-        "graphsage_torch.supervise\n"
-        "import chip_smoke\n"
+        "graphsage_torch.supervise, graphsage_torch.parallel, "
+        "graphsage_torch.parallel.comm, graphsage_torch.parallel.halo, "
+        "graphsage_torch.parallel.multihost, "
+        "graphsage_torch.parallel.partition, "
+        "graphsage_torch.train.cached_dist, "
+        "graphsage_torch.train.cached_dist_trainer, "
+        "graphsage_torch.train.distributed, "
+        "graphsage_torch.train.dist_trainer\n"
+        "import chip_smoke, tests.torch_dist_worker\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1384,3 +1384,56 @@ def test_bf16_backward_within_the_rounding_bound_on_the_cpu(kind):
             <= (n + 1) * 2.0**-8 * absum).all()
     assert _report(f"{kind} bf16 on the CPU", grad, i, terms,
                    e.shape[0]) >= 1000
+
+
+# ------------------------------------------------ collectives on the card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_collectives_at_world_1_on_nccl(dtype):
+    """The distributed pipelines' collectives at world 1 on the card go to
+    NCCL (no shortcut): all_gather_rows and all_to_all_rows forward are
+    copies, and their backward (the SUM reduce-scatter, the reverse
+    all_to_all) hands the gradient back unchanged; mean_over_ranks of one
+    rank is the tensor.  The halo exchange of one rank is the row
+    gather."""
+    import torch.distributed as dist
+
+    from graphsage_torch.parallel import comm, multihost
+    from graphsage_torch.parallel.halo import halo_gather_local, plan_halo
+
+    dev = _card()
+    owned = not dist.is_initialized()
+    multihost.initialize()
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        gen = torch.Generator().manual_seed(3)
+        x = torch.randn(64, 24, generator=gen).to(dev, dtype)
+        cot = torch.randn(64, 24, generator=gen).to(dev, dtype)
+        for fn, shape in ((comm.all_gather_rows, (64, 24)),
+                          (comm.all_to_all_rows, (1, 64, 24))):
+            leaf = x.reshape(shape).clone().requires_grad_(True)
+            out = fn(leaf)
+            assert torch.equal(out, leaf.detach())
+            out.backward(cot.reshape(shape))
+            torch.cuda.synchronize()
+            assert torch.equal(leaf.grad, cot.reshape(shape))
+        req = torch.arange(16, dtype=torch.int32, device=dev).reshape(1, 16)
+        assert torch.equal(comm.all_to_all_rows(req), req)
+        a = torch.randn(5, generator=gen).to(dev)
+        assert torch.equal(comm.mean_over_ranks([a])[0], a)
+        ids = np.random.RandomState(4).randint(0, 64, (1, 40))
+        plan = plan_halo(ids, 64, 1, exclude_self=False)
+        t = {k: torch.from_numpy(getattr(plan, k)[0]).to(dev) for k in (
+            "requests", "addr_owner", "addr_slot", "addr_is_local",
+            "addr_local")}
+        before = agg.LAUNCHES["gather_rows"]
+        got = halo_gather_local(x, t["requests"], t["addr_owner"],
+                                t["addr_slot"], t["addr_is_local"],
+                                t["addr_local"])
+        torch.cuda.synchronize()
+        assert agg.LAUNCHES["gather_rows"] == before + 3
+        assert torch.equal(got, x[torch.from_numpy(ids[0]).to(dev)])
+    finally:
+        if owned:
+            multihost.shutdown()

@@ -478,16 +478,28 @@ def test_cli_trains_exports_and_serves(tmp_path, capsys):
         len(trainer.ds.val_nodes),)
 
 
-@pytest.mark.parametrize("flags,error,match", [
-    (["--pipeline", "cached_dist"], NotImplementedError, "item 16"),
-    (["--pipeline", "dist"], NotImplementedError, "item 16"),
-    (["--resume", "{tmp}/no_such_checkpoint"], FileNotFoundError,
-     "no_such_checkpoint"),
-    (["--config", "{tmp}/include.conf"], HoconSubsetError, "'include'"),
+@pytest.mark.parametrize("flags,world,error,match", [
+    pytest.param(["--pipeline", "cached_dist"], "2", RuntimeError,
+                 "refusing to run as world 1",
+                 id="flags0-RuntimeError-world 1"),
+    pytest.param(["--pipeline", "dist"], "2", RuntimeError,
+                 "refusing to run as world 1",
+                 id="flags1-RuntimeError-world 1"),
+    pytest.param(["--resume", "{tmp}/no_such_checkpoint"], None,
+                 FileNotFoundError, "no_such_checkpoint",
+                 id="flags2-FileNotFoundError-no_such_checkpoint"),
+    pytest.param(["--config", "{tmp}/include.conf"], None, HoconSubsetError,
+                 "'include'", id="flags3-HoconSubsetError-'include'"),
 ])
-def test_cli_refuses_what_is_not_ported(flags, error, match, tmp_path):
-    """Unported pipelines, a checkpoint that is not there and a config
-    file outside the HOCON subset fail loudly."""
+def test_cli_refuses_what_is_not_ported(flags, world, error, match,
+                                        tmp_path, monkeypatch):
+    """A distributed pipeline whose environment names a multi-process job
+    it cannot join (WORLD_SIZE=2, no rendezvous), a checkpoint that is not
+    there and a config file outside the HOCON subset fail loudly."""
+    for name in ("RANK", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE"):
+        monkeypatch.delenv(name, raising=False)
+    if world is not None:
+        monkeypatch.setenv("WORLD_SIZE", world)
     (tmp_path / "include.conf").write_text('include "other.conf"\n')
     flags = [f.format(tmp=tmp_path) for f in flags]
     with pytest.raises(error, match=match):
