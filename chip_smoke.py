@@ -229,6 +229,34 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    and scatter_rows at (n)'s h1_full gather and (o)'s three exchange
    gathers, pair_scores at (p)'s step, gather_mean / gather_max at (q)'s
    layer 1.
+12. The tensor-parallel ``model`` axis (parallel/mesh.py) at world 1 on
+   NCCL (a (1 x 1) mesh: the column all-gather, the reduce-scatter of its
+   backward, the partial logits' all-reduce and the norm's all-reduce are
+   copies):
+   (s) the tensor-parallel dense step (train.dense.make_dense_sup_step
+       with the mesh) at (f)'s configuration, sup MEAN, batches of
+       DENSE_B, TP_STEPS steps of the bench batches, float32 and bfloat16:
+       launches counted by shape against the code's prediction (a step:
+       gather_mean 2; in bfloat16 scatter_rows 4: both layers' aggregate
+       and self-row gradients; gather_rows 0, the self rows are
+       index_select); the loss curve and the final params equal
+       make_dense_sup_step's without the mesh bit for bit, from the same
+       params and generator state (deterministic algorithms on for both
+       runs, so float32 index_add_ adds in a fixed order); ms_per_step and
+       edges/s of both steps, the world-1 column all-gather and
+       reduce-scatter of [DENSE_B·11, 128] float32, the idle share of an
+       epoch; one step under utils.obs.profile, its trace's path and
+       breakdown (trace_breakdown) printed;
+   (t) the shapes a model rank of a 2-way model axis launches, which one
+       card cannot run as two ranks (NCCL refuses two ranks on one
+       device): gather_mean over the [100000, 64] agg half of layer 1's
+       pretransform at row stride 128, idx [45056, 11], float32 and
+       bfloat16, with its backward (the bfloat16 scatter_rows row at its
+       shape); gather_rows on the 64-wide self half, float32 and bfloat16,
+       and the bfloat16 scatter of its backward; held against the plain
+       versions as the other rows are (launches 0: world 1 launches the
+       128-wide shapes);
+   (u) entry.dryrun_multichip(1): the four parallel programs' asserts.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -279,7 +307,9 @@ from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.models.layers import mean_pretransform
 from graphsage_torch.ops import build, gather, scatter, sddmm
+from graphsage_torch.entry import dryrun_multichip
 from graphsage_torch.parallel import comm, halo, multihost
+from graphsage_torch.parallel import mesh as pmesh
 from graphsage_torch.sampler import PairSampler
 from graphsage_torch.sampler.compact import _bucket
 from graphsage_torch.sampler.device import HopSampler
@@ -288,6 +318,7 @@ from graphsage_torch.train import (CachedTrainer, Trainer, TrainConfig,
                                    micro_f1)
 from graphsage_torch.train.optim import tree_leaves
 from graphsage_torch.train.trainer import _leaf_params
+from graphsage_torch.utils import obs
 
 NODES, EDGES, FEATS, CLASSES, WIDTH, HIDDEN = (100_000, 1_000_000, 602, 16,
                                                32, 128)
@@ -1146,15 +1177,16 @@ def bf16_backward_check(name: str, fn, embed: torch.Tensor, args: tuple,
 
 def mean_step_rows(step_inputs: dict, launches: int,
                    what: str = "training",
-                   scatter_launches: int | None = None) -> list:
-    """gather_mean at the training step's two layer shapes: the kernel row,
-    and the scatter-add gradient against autograd through the plain
-    version (float32) or against the same gradient on the CPU (bfloat16,
-    bit for bit), with a scatter_rows row at the backward's shape when
-    ``scatter_launches`` is given."""
+                   scatter_launches: int | None = None,
+                   first_layer: int = 1) -> list:
+    """gather_mean at the training step's layer shapes (the first is layer
+    ``first_layer``): the kernel row, and the scatter-add gradient against
+    autograd through the plain version (float32) or against the same
+    gradient on the CPU (bfloat16, bit for bit), with a scatter_rows row at
+    the backward's shape when ``scatter_launches`` is given."""
     rows = []
     for layer, (embed, idx, mask) in enumerate(step_inputs["gather_mean"],
-                                               start=1):
+                                               start=first_layer):
         bf16 = embed.dtype == torch.bfloat16
         label = f"{'bf16' if bf16 else 'f32'} {what} layer {layer}"
         rows.append(kernel_row("gather_mean", label, embed, idx, mask,
@@ -2636,8 +2668,9 @@ def row_key(table: torch.Tensor, idx: torch.Tensor) -> tuple:
     return tuple(table.shape), table.stride(0), tuple(idx.shape)
 
 
-COLLECTIVE_OPS = ("AllGatherRows", "AllToAllRows", "allreduce", "all_gather",
-                  "reduce_scatter", "all_to_all")
+COLLECTIVE_OPS = ("AllGatherRows", "AllGatherCols", "SumPartials",
+                  "AllToAllRows", "allreduce", "all_gather", "reduce_scatter",
+                  "all_to_all")
 
 
 def trace_breakdown(events: list) -> tuple[dict, collections.Counter]:
@@ -3288,6 +3321,298 @@ def dist_phase(ds, runs: dict, dev: torch.device, phase_mark) -> list:
     return rows
 
 
+TP_STEPS = 5
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms for the block (float32 index_add_
+    then adds in a fixed order; ops without a deterministic form warn)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def tp_launches(cfg: GraphSageConfig) -> collections.Counter:
+    """What TP_STEPS tensor-parallel dense steps launch at world 1, by
+    (kernel, shape): the gathered encoder's two gather_mean (layer 1 over
+    the pretransformed table's agg half, layer 2 over layer 1's output)
+    and, in bfloat16, scatter_rows for the gradient of both layers'
+    aggregates and self-row gathers (bf16_scatters)."""
+    k = FANOUT + 1
+    u1, u2 = DENSE_B * k, DENSE_B
+    want = collections.Counter({
+        ("gather_mean", ((NODES, HIDDEN), 2 * HIDDEN, (u1, k))): TP_STEPS,
+        ("gather_mean", ((u1, HIDDEN), HIDDEN, (u2, k))): TP_STEPS})
+    if cfg.compute_dtype == "bfloat16":
+        assert bf16_scatters(cfg, NODES, u1 * k, [u1, u2]) == 4
+        for rows, into in ((u1 * k, NODES), (u1, NODES), (u2 * k, u1),
+                           (u2, u1)):
+            want["scatter_rows", ((into, HIDDEN), (rows,))] += TP_STEPS
+    return want
+
+
+def tp_step_s(dtype: str, feats, tables, labels, mesh,
+              dev: torch.device) -> tuple:
+    """(s) one dtype: the counted tensor-parallel steps, equal bit for bit
+    to the dense step without the mesh (both under ``deterministic()``:
+    the timed steps after them run as a user runs them, with float32
+    index_add_'s atomics); times, the idle share, a profiled step; returns
+    (summary, layer 1's gather ids, mask, self ids and weight of one more
+    batch for (t), the main path's kernel inputs for :func:`tp_s_rows`)."""
+    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
+                          compute_dtype=dtype)
+    tag = (f"[tp s: sup MEAN {dtype} b_sz {DENSE_B}, mesh "
+           f"({mesh.n_data} x {mesh.n_model}) "
+           f"{torch.distributed.get_backend()}]")
+    params = bf16_params(cfg, dev)
+    sharded = pmesh.shard_params(params, mesh)
+    batches, batch_labels = bench_batches(DENSE_B, TP_STEPS, labels)
+
+    def hop():
+        return HopSampler(*tables, torch.Generator(device=dev).manual_seed(
+            SEED + 1))
+
+    step = dense.make_dense_sup_step(cfg, fanout=FANOUT, lr=LR, mesh=mesh)
+    plain_step = dense.make_dense_sup_step(cfg, fanout=FANOUT, lr=LR)
+    by_shape = collections.Counter()
+    seen = []
+
+    def mean_rec(embed, idx, mask):
+        # the first step's input of each layer, for the kernel rows
+        if len(seen) < cfg.num_layers:
+            seen.append((embed.detach(), idx, mask))
+        return agg.mean_aggregate(embed, idx, mask)
+
+    tp_hop = hop()
+    with deterministic():
+        agg.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with patched(graphsage, mean_aggregate=mean_rec), \
+                launches_by_call(graphsage, "mean_aggregate",
+                              lambda e, i, m: row_key(e, i), by_shape), \
+                launches_by_call(scatter, "scatter_rows", lambda g, idx, m: (
+                    (m, g.shape[1]), (g.shape[0],)), by_shape):
+            losses = torch.stack([step(sharded, feats, tp_hop, batches[t],
+                                       batch_labels[t])
+                                  for t in range(TP_STEPS)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(agg.LAUNCHES)
+        want = tp_launches(cfg)
+        log(f"{tag} main path: {TP_STEPS} tensor-parallel steps in "
+            f"{run_s:.3f} s; launches {launches}; by (kernel, (table shape, "
+            f"row stride, ids shape)) {dict(by_shape)}; predicted from the "
+            f"code {dict(want)}; loss curve "
+            + " ".join(f"{x:.6f}" for x in losses.tolist()))
+        assert by_shape == want, (dict(by_shape), dict(want))
+        assert launches["gather_rows"] == 0 and launches["gather_max"] == 0
+        assert torch.isfinite(losses).all()
+        ref = _leaf_params(params, dev)
+        ref_hop = hop()
+        ref_losses = torch.stack([plain_step(ref, feats, ref_hop, batches[t],
+                                             batch_labels[t])
+                                  for t in range(TP_STEPS)])
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(tree_leaves(sharded), tree_leaves(ref)))
+    log(f"{tag} against make_dense_sup_step without the mesh, from the same "
+        f"params and generator state: losses equal bit for bit "
+        f"{torch.equal(losses, ref_losses)}, final params equal bit for bit "
+        f"{same_params}")
+    assert torch.equal(losses, ref_losses) and same_params
+
+    edges = dense.edges_per_batch(DENSE_B, 2, FANOUT)
+    tp_hop = ref_hop = hop()
+    ms = timed_steps(f"{tag} tensor-parallel", lambda t: step(
+        sharded, feats, tp_hop, batches[t], batch_labels[t]), TP_STEPS, edges)
+    plain_ms = timed_steps(f"{tag} without the mesh", lambda t: plain_step(
+        ref, feats, ref_hop, batches[t], batch_labels[t]), TP_STEPS, edges)
+    h = torch.randn(DENSE_B * (FANOUT + 1), HIDDEN, device=dev)
+    joined = cuda_ms(lambda: comm.all_gather_cols(h, mesh.model_group),
+                     reps=20)
+    scattered = cuda_ms(lambda: comm._reduce_scatter_sum(h, mesh.model_group),
+                        reps=20)
+    log(f"{tag} world-1 NCCL column all-gather of {list(h.shape)} float32 "
+        f"({h.numel() * 4} bytes) {joined:.6f} ms, reduce-scatter "
+        f"{scattered:.6f} ms (events, mean of 20)")
+    wall, busy = epoch_profile(tag, lambda: [step(
+        sharded, feats, tp_hop, batches[t], batch_labels[t])
+        for t in range(TP_STEPS)], TP_STEPS)
+    with obs.profile(os.path.join(BUILD_DIR, "chip_smoke_tp")) as path:
+        step(sharded, feats, tp_hop, batches[0], batch_labels[0])
+        torch.cuda.synchronize()
+    with open(path) as f:
+        breakdown, top_ops = trace_breakdown(
+            [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"])
+    log(f"{tag} one step under utils.obs.profile: trace {path}; "
+        f"{json.dumps(breakdown)}; top host ops (ms): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in top_ops.most_common(8)))
+    # layer 1's table ids of one more batch's frontier, as the gathered
+    # encoder composes them
+    x0_ids, frontiers = dense.sample_frontiers_dense(
+        tp_hop, batches[0], num_layers=2, fanout=FANOUT)
+    idx_t = x0_ids.long()[frontiers[0].idx.long()].to(torch.int32)
+    self_t = x0_ids[frontiers[0].self_idx.long()]
+    summary = {"ms_per_step": ms, "edges_per_s": edges / ms * 1e3,
+               "dense_ms_per_step": plain_ms, "epoch_ms": wall,
+               "busy_ms": busy,
+               "idle_share": None if busy is None else 1 - busy / wall,
+               "column_all_gather_ms": joined,
+               "reduce_scatter_ms": scattered,
+               "collectives_host_ms": breakdown.get("collectives_host_ms")}
+    w1 = dense.cast_compute(params["sage"]["layers"][0]["weight"], cfg)
+    main = {"by_shape": by_shape, "gather_mean": seen,
+            "self_ids": [self_t, frontiers[1].self_idx]}
+    return summary, (idx_t, frontiers[0].mask, self_t, w1.detach()), main
+
+
+def tp_s_rows(dtype: str, main: dict) -> list:
+    """(s)'s kernel rows at every shape its main path launched, each with
+    (s)'s launches of that shape: gather_mean at both layers on the first
+    step's inputs, against its plain version with its backward, and in
+    bfloat16 scatter_rows at the four shapes of the backward (each layer's
+    aggregate and self rows; the self ids are one more batch's, of the
+    same shape)."""
+    by_shape = main["by_shape"]
+    bf16 = dtype == "bfloat16"
+    rows, covered = [], set()
+    for layer, ((embed, idx, mask), self_ids) in enumerate(
+            zip(main["gather_mean"], main["self_ids"]), start=1):
+        key = ("gather_mean", row_key(embed, idx))
+        m, d = embed.shape
+        agg_key = ("scatter_rows", ((m, d), (idx.numel(),)))
+        self_key = ("scatter_rows", ((m, d), (self_ids.shape[0],)))
+        covered.add(key)
+        if not bf16:
+            label = f"f32 tp (s) layer {layer}"
+            rows.append(kernel_row("gather_mean", label, embed, idx, mask,
+                                   by_shape[key]))
+            f32_backward_check(f"gather_mean {label}", embed, idx, mask)
+            continue
+        rows.extend(mean_step_rows({"gather_mean": [(embed, idx, mask)]},
+                                   by_shape[key], what="tp (s)",
+                                   scatter_launches=by_shape[agg_key],
+                                   first_layer=layer))
+        g = torch.randn(self_ids.shape[0], d, generator=torch.Generator(
+            ).manual_seed(3 + layer)).to(embed.device, torch.bfloat16)
+        rows.append(scatter_row(
+            f"bf16 tp (s) layer {layer} self rows backward, "
+            f"{self_ids.shape[0]} rows into [{m}, {d}]", g, self_ids, m,
+            by_shape[self_key]))
+        covered |= {agg_key, self_key}
+    assert covered == set(by_shape), (covered, set(by_shape))
+    return rows
+
+
+def f32_backward_check(label: str, embed: torch.Tensor, idx: torch.Tensor,
+                       mask: torch.Tensor) -> None:
+    """gather_mean's float32 gradient where rows gather many slots (the
+    hubs of the power-law graph: index_add_'s atomics and autograd's
+    sorted scatter add in different orders, so the two differ by more
+    than 1e-5): the kernel path's and the plain version's, each against
+    the float64 sum of the same float32 contributions, within the a-priori
+    bound of summing them in any order, gamma_(n+1) times the sum of their
+    magnitudes (u = 2^-24, n the longest row's count, the 1 the product's
+    own rounding)."""
+    m, d = embed.shape
+    g = torch.randn(idx.shape[0], d, generator=torch.Generator().manual_seed(
+        1)).to(embed.device)
+    w = mask / mask.sum(1, keepdim=True).clamp_min(1.0)
+    contrib = (g[:, None, :] * w[:, :, None]).reshape(-1, d).double()
+    flat = idx.reshape(-1).long()
+    exact = torch.zeros(m, d, dtype=torch.float64, device=embed.device)
+    exact.index_add_(0, flat, contrib)
+    mag = torch.zeros_like(exact).index_add_(0, flat, contrib.abs())
+    n = int(torch.bincount(flat[mask.reshape(-1) > 0], minlength=m).max())
+    gamma = (n + 1) * 2.0**-24 / (1 - (n + 1) * 2.0**-24)
+    errs = {}
+    for name, fn in (("kernel", agg.mean_aggregate),
+                     ("plain", agg.mean_aggregate_plain)):
+        leaf = embed.detach().clone().requires_grad_(True)
+        (fn(leaf, idx, mask) * g).sum().backward()
+        diff = (leaf.grad.double() - exact).abs()
+        if not bool((diff <= gamma * mag).all()):
+            raise AssertionError(f"{label} gradient ({name}): outside the "
+                                 f"summation bound")
+        errs[name] = float(diff.max())
+    log(f"  {label} backward (index_add_ into [{m}, {d}], the longest row "
+        f"{n} contributions): max abs error to the float64 sum, kernel "
+        f"path {errs['kernel']}, plain {errs['plain']}; both within "
+        f"gamma_(n+1) = {gamma:.6g} of the terms' magnitudes (largest "
+        f"{float(mag.max()):.6g})")
+
+
+def two_way_rows(feats, inputs, dtype: str) -> list:
+    """(t) the layer-1 shapes of a rank of a 2-way model axis: its
+    pretransform of the table by the first half of the weight's rows,
+    gather_mean over the [N, H/2] agg half (row stride H) and its
+    backward, gather_rows over the self half and, in bfloat16, the
+    scatter of its backward."""
+    idx, mask, self_idx, w1 = inputs
+    half = HIDDEN // 2
+    with torch.no_grad():
+        h_cat = mean_pretransform(w1[:half], feats)          # [N, H]
+    bf16 = dtype == "bfloat16"
+    what = f"2-way model rank, agg half [{NODES}, {half}] stride {HIDDEN}"
+    if bf16:
+        rows = mean_step_rows({"gather_mean": [(h_cat[:, half:], idx,
+                                                mask)]},
+                              0, what=what, scatter_launches=0)
+    else:
+        rows = [kernel_row("gather_mean", f"f32 {what} layer 1",
+                           h_cat[:, half:], idx, mask, 0)]
+        f32_backward_check(f"gather_mean f32 {what} layer 1",
+                           h_cat[:, half:], idx, mask)
+    table = h_cat[:, :half]
+    label = (f"{'bf16' if bf16 else 'f32'} 2-way model rank self half, "
+             f"{self_idx.shape[0]} ids over [{NODES}, {half}] stride "
+             f"{HIDDEN}")
+    rows.append(gather_row(label, table, self_idx, 0))
+    if bf16:
+        g = torch.randn(self_idx.shape[0], half, generator=torch.Generator(
+            ).manual_seed(3)).to(table.device, table.dtype)
+        rows.append(scatter_row(f"{label} backward", g, self_idx, NODES, 0))
+    return rows
+
+
+def tp_phase(ds, dev: torch.device, phase_mark) -> list:
+    """Phase 12: the tensor-parallel model axis at world 1 on NCCL, (s),
+    (t) and (u); returns the kernel rows."""
+    dev = multihost.initialize(dev)
+    rows, summaries = [], {}
+    try:
+        mesh = pmesh.make_mesh()
+        pad = ds.graph.to_padded_sampled(TABLE_CAP,
+                                         np.random.RandomState(SEED))
+        tables = (torch.from_numpy(pad.neighbors).to(dev),
+                  torch.from_numpy(pad.degrees).to(dev))
+        labels = torch.from_numpy(ds.labels.astype(np.int32)).to(dev)
+        for dtype in ("float32", "bfloat16"):
+            feats = torch.from_numpy(ds.features).to(
+                dev, graphsage.compute_dtype(GraphSageConfig(
+                    compute_dtype=dtype)))
+            summaries[f"s {dtype}"], inputs, main = tp_step_s(
+                dtype, feats, tables, labels, mesh, dev)
+            rows.extend(tp_s_rows(dtype, main))
+            rows.extend(two_way_rows(feats, inputs, dtype))
+            del feats, inputs, main
+        phase_mark("phase 12 (s), (t): the tensor-parallel step")
+        t0 = time.perf_counter()
+        lines = dryrun_multichip(1, device=dev)    # rank 0 prints them
+        summaries["u_s"] = time.perf_counter() - t0
+        assert len(lines) == 4, lines
+        log(f"[tp u] dryrun_multichip(1): the four programs' asserts passed "
+            f"in {summaries['u_s']:.3f} s")
+    finally:
+        multihost.shutdown()
+    torch.cuda.empty_cache()
+    log(json.dumps({"tensor_parallel": summaries}))
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3418,6 +3743,9 @@ def run(dev: torch.device) -> int:
 
     rows.extend(dist_phase(ds, bf16_runs, dev, phase_done))
     phase_done("phase 11 (distribution)")
+
+    rows.extend(tp_phase(ds, dev, phase_done))
+    phase_done("phase 12 (tensor parallel)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

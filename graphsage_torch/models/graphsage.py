@@ -123,16 +123,20 @@ def _aggregate(cfg: GraphSageConfig, params: dict, layer: int,
 
 
 def graphsage_apply(params: dict, cfg: GraphSageConfig, x0: torch.Tensor,
-                    frontiers: Sequence[Frontier]) -> torch.Tensor:
+                    frontiers: Sequence[Frontier],
+                    join=None) -> torch.Tensor:
     """Bottom-up encode (reference src/models.py:255-269).
 
     x0: [U_0, D] raw-feature rows of the deepest union; frontiers[l] maps
     layer-l rows onto layer-(l-1) rows.  Returns [U_L, out_size] in the top
-    frontier's row order."""
+    frontier's row order.  ``join`` maps each layer's output but the last
+    before the next layer takes it (see :func:`graphsage_apply_gathered`)."""
     _check_trainable(cfg)
     assert len(frontiers) == cfg.num_layers
     h = x0
     for layer, frontier in enumerate(frontiers):
+        if layer and join is not None:
+            h = join(h)
         h = _layer(cfg, params, layer, h, frontier)
     return h
 
@@ -149,16 +153,27 @@ def _layer(cfg: GraphSageConfig, params: dict, layer: int, h: torch.Tensor,
 
 def graphsage_apply_gathered(params: dict, cfg: GraphSageConfig,
                              feats: torch.Tensor, x0_ids: torch.Tensor,
-                             frontiers: Sequence[Frontier]) -> torch.Tensor:
+                             frontiers: Sequence[Frontier], join=None,
+                             u0: int | None = None) -> torch.Tensor:
     """Like graphsage_apply, from the full feature table and the gather ids.
 
     When the table has no more than twice the rows of the expanded frontier
     (``n <= 2 * u0``, the JAX package's ``apply_table`` rule), layer 1
     transforms the TABLE once ([N, D] x [D, 2H]) and every gather moves
-    H-wide rows instead of D-wide ones."""
+    H-wide rows instead of D-wide ones.
+
+    On a rank of a tensor-parallel ``model`` axis (``train.dense`` with a
+    mesh) the layer weights are the rank's rows, so each layer yields the
+    rank's column slice of its output: ``join``
+    (``parallel.comm.all_gather_cols``) makes it whole before the next
+    layer, and the last layer's slice is returned.  ``u0`` is then the
+    frontier's global row count, on which the rule decides as GSPMD does
+    on global shapes (a data rank holds a block of the rows; the rule of
+    the later layers compares two row counts of one block, whose ratio the
+    block keeps)."""
     _check_trainable(cfg)
     f0 = frontiers[0]
-    u0 = x0_ids.shape[0]
+    u0 = x0_ids.shape[0] if u0 is None else u0
     n = feats.shape[0]
     apply_table = (
         cfg.agg_func == "MEAN" and cfg.mean_pretransform != "never"
@@ -166,7 +181,7 @@ def graphsage_apply_gathered(params: dict, cfg: GraphSageConfig,
         and (cfg.mean_pretransform == "always" or n <= 2 * u0))
     if not apply_table:
         x0 = feats[x0_ids.long()]
-        return graphsage_apply(params, cfg, x0, frontiers)
+        return graphsage_apply(params, cfg, x0, frontiers, join)
 
     w = params["layers"][0]["weight"]
     # compose index maps: frontier slots -> x0 rows -> table rows
@@ -185,6 +200,8 @@ def graphsage_apply_gathered(params: dict, cfg: GraphSageConfig,
         h = torch.relu(agg + take_rows(h_cat[:, :hdim], self_t))
 
     for layer in range(1, cfg.num_layers):
+        if join is not None:
+            h = join(h)
         h = _layer(cfg, params, layer, h, frontiers[layer])
     return h
 

@@ -106,10 +106,18 @@ def sage_layer_apply(params: dict, self_feats: torch.Tensor,
     return torch.relu(out).to(combined.dtype)
 
 
-def classifier_apply(params: dict, embeds: torch.Tensor) -> torch.Tensor:
-    """log_softmax(Linear(embeds)), reference src/models.py:25-27."""
-    logits = (torch.matmul(embeds.float(), params["weight"].float().T)
-              + params["bias"].float())
+def classifier_apply(params: dict, embeds: torch.Tensor,
+                     partial_sum=None) -> torch.Tensor:
+    """log_softmax(Linear(embeds)), reference src/models.py:25-27.
+
+    On a rank of a tensor-parallel ``model`` axis ``embeds`` and the weight
+    are the rank's column slices, and ``partial_sum``
+    (``parallel.comm.sum_partials``) sums the partial logits over the model
+    group before the bias is added, once."""
+    logits = torch.matmul(embeds.float(), params["weight"].float().T)
+    if partial_sum is not None:
+        logits = partial_sum(logits)
+    logits = logits + params["bias"].float()
     return torch.log_softmax(logits, dim=-1).to(embeds.dtype)
 
 

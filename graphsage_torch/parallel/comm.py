@@ -22,6 +22,17 @@ per-device body.  The collectives inside those bodies map so:
   P times the update (the trap of ``distributed.py:222-228``).
 - ``lax.axis_index``: :func:`rank_world`'s rank.
 
+The tensor-parallel ``model`` axis (``parallel/mesh.py``) needs two more,
+which GSPMD inserts for the JAX package and the port writes out:
+
+- :func:`all_gather_cols`: each model rank's [u, H/n] column slice of a
+  layer's output joined into [u, H] before the next layer; its backward is
+  the SUM reduce-scatter of the column slices (each rank's slice of the
+  next layer's input gradient summed over the ranks that read it);
+- :func:`sum_partials`: the classifier's partial logits summed over the
+  model group (SUM all-reduce); its backward is the identity, since every
+  rank's partial enters the sum once.
+
 The two differentiable collectives are ``torch.autograd.Function``s with
 their backward written out (``torch.distributed.nn.functional``'s backward
 has changed between torch versions).  Every rank must call the same
@@ -113,6 +124,49 @@ def all_gather_rows(x: torch.Tensor, group=None) -> torch.Tensor:
     (q+1)·R).  The gradient of rank r's x is the SUM over ranks of the
     result's gradient at rank r's rows."""
     return _AllGatherRows.apply(x, group)
+
+
+class _AllGatherCols(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        world = dist.get_world_size(group)
+        u, c = x.shape
+        stacked = _all_gather(x, group).reshape(world, u, c)
+        return stacked.transpose(0, 1).reshape(u, world * c)
+
+    @staticmethod
+    def backward(ctx, g):
+        world = dist.get_world_size(ctx.group)
+        u, h = g.shape
+        slices = g.reshape(u, world, h // world).transpose(0, 1)
+        return _reduce_scatter_sum(slices.reshape(world * u, h // world),
+                                   ctx.group), None
+
+
+def all_gather_cols(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x [u, c] on every rank -> [u, P·c], rank q's columns at [q·c,
+    (q+1)·c).  The gradient of rank r's x is the SUM over ranks of the
+    result's gradient at rank r's columns."""
+    return _AllGatherCols.apply(x, group)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_partials(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise SUM over ranks of x (each rank's partial product),
+    the same on every rank; each rank's x gets the result's gradient."""
+    return _SumPartials.apply(x, group)
 
 
 def mean_over_ranks(tensors: list[torch.Tensor],

@@ -22,21 +22,37 @@ differentiated function, so every product takes bfloat16 operands with
 float32 accumulation and the gradients come back through the cast as
 float32 (the contract of every bfloat16 training path in the port).
 
+Tensor parallelism (``make_dense_sup_step(mesh=...)``): the JAX package
+runs this step under GSPMD with ``parallel/mesh.py``'s placement (its
+``dryrun_multichip``); the port runs it a process a rank over
+``graphsage_torch.parallel.mesh``.  Every rank draws the global batch's
+hops, so the step sees the single-device step's samples, keeps its data
+rank's block, computes its model rank's column slice of each layer
+(``comm.all_gather_cols`` joins the slices before the next layer) and its
+partial logits (``comm.sum_partials`` sums them over the model group
+before the bias), and updates its slices
+(``optim.apply_gradients_sharded``).
+
 The JAX package's dense pipeline is a library API: its CLI has no
 ``--pipeline dense``, and neither has the port's.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from graphsage_torch.convert import _tree_map
 from graphsage_torch.losses import supervised_nll, unsup_loss_from_pairbatch
-from graphsage_torch.models.graphsage import (GraphSageConfig, compute_dtype,
+from graphsage_torch.models.graphsage import (Frontier, GraphSageConfig,
+                                              compute_dtype,
                                               graphsage_apply_gathered)
 from graphsage_torch.models.layers import classifier_apply
+from graphsage_torch.parallel import comm
+from graphsage_torch.parallel.mesh import Mesh, batch_rows
 from graphsage_torch.sampler.device import sample_frontiers_dense
-from graphsage_torch.train.optim import apply_gradients
+from graphsage_torch.train.optim import apply_gradients, apply_gradients_sharded
 
 
 def cast_compute(tree, mcfg: GraphSageConfig):
@@ -53,31 +69,79 @@ def cast_compute(tree, mcfg: GraphSageConfig):
 
 
 def dense_forward(params: dict, mcfg: GraphSageConfig, feats: torch.Tensor,
-                  hop, batch: torch.Tensor, fanout: int = 10) -> torch.Tensor:
+                  hop, batch: torch.Tensor, fanout: int = 10,
+                  mesh: Mesh | None = None) -> torch.Tensor:
     """Sampling and encode for a batch of node ids: [B] -> [B, out_size] in
-    the compute dtype.  ``hop`` draws one hop a layer, top-down."""
+    the compute dtype.  ``hop`` draws one hop a layer, top-down.
+
+    With ``mesh`` (the tensor-parallel step) the hops are the global
+    batch's, the encode runs on this data rank's block of them and yields
+    this model rank's [B / n_data, out_size / n_model] column slice, the
+    layers' slices joined by ``comm.all_gather_cols``."""
     x0_ids, frontiers = sample_frontiers_dense(
         hop, batch, num_layers=mcfg.num_layers, fanout=fanout, gcn=mcfg.gcn)
+    join = u0 = None
+    if mesh is not None:
+        u0 = x0_ids.shape[0]
+        x0_ids, frontiers = _block_of(x0_ids, frontiers, mesh)
+        join = functools.partial(comm.all_gather_cols,
+                                 group=mesh.model_group)
     params = cast_compute(params, mcfg)
     feats = cast_compute(feats, mcfg)
     return graphsage_apply_gathered(params["sage"], mcfg, feats, x0_ids,
-                                    frontiers)
+                                    frontiers, join=join, u0=u0)
 
 
 def make_dense_sup_step(mcfg: GraphSageConfig, fanout: int = 10,
-                        lr: float = 0.7, clip: float = 5.0):
+                        lr: float = 0.7, clip: float = 5.0,
+                        mesh: Mesh | None = None):
     """Supervised step: ``step(params, feats, hop, batch, labels) -> loss``
     (a float32 device scalar, not synchronised), the params updated in
-    place."""
+    place.
+
+    With ``mesh`` it is one rank's step of the data- and tensor-parallel
+    step: ``params`` are the rank's ``parallel.mesh.shard_params``,
+    ``batch`` and ``labels`` the global batch (the same on every rank, its
+    size a multiple of n_data), ``hop`` seeded alike on every rank; the
+    loss returned is the mean over the data ranks, the global batch's
+    mean NLL.  LSTM is refused on a model axis of more than one rank (see
+    ``optim.apply_gradients_sharded``)."""
+    partial_sum = None
+    if mesh is not None:
+        if mcfg.agg_func == "LSTM" and mesh.n_model > 1:
+            raise ValueError("LSTM cells are replicated over the model "
+                             "axis, and their gradients there are partial: "
+                             "LSTM runs on a mesh with n_model 1 only")
+        partial_sum = functools.partial(comm.sum_partials,
+                                        group=mesh.model_group)
+
     def step(params, feats, hop, batch, labels):
-        embs = dense_forward(params, mcfg, feats, hop, batch, fanout)
-        logp = classifier_apply(cast_compute(params["clf"], mcfg), embs)
-        mask = torch.ones(batch.shape[0], device=embs.device)
+        if mesh is not None:
+            labels = batch_rows(labels, mesh)
+        embs = dense_forward(params, mcfg, feats, hop, batch, fanout, mesh)
+        logp = classifier_apply(cast_compute(params["clf"], mcfg), embs,
+                                partial_sum)
+        mask = torch.ones(labels.shape[0], device=embs.device)
         loss = supervised_nll(logp, labels, mask)
+        if mesh is not None:
+            return apply_gradients_sharded(params, loss, lr, clip, mesh)
         apply_gradients(params, loss, ("sage", "clf"), lr, clip)
         return loss.detach()
 
     return step
+
+
+def _block_of(x0_ids: torch.Tensor, frontiers: list, mesh: Mesh):
+    """This data rank's block of the global batch's dense frontiers: the
+    same rows of every depth (``mesh.batch_rows``), each frontier's slot
+    and self indices re-based onto the block's first row."""
+    out = []
+    for f in frontiers:
+        base = batch_rows(f.self_idx, mesh)
+        out.append(Frontier(idx=batch_rows(f.idx, mesh) - base[:1],
+                            mask=batch_rows(f.mask, mesh),
+                            self_idx=base - base[:1]))
+    return batch_rows(x0_ids, mesh), out
 
 
 def make_dense_unsup_step(mcfg: GraphSageConfig, unsup_loss: str = "normal",

@@ -10,8 +10,10 @@ lists) of leaf tensors; the scale stays on the device (no host sync).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from graphsage_torch.parallel.comm import mean_over_ranks
+from graphsage_torch.parallel.mesh import Mesh, map_with_paths, sharded_dim
 
 
 def tree_leaves(tree) -> list:
@@ -27,21 +29,27 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads))
 
 
-def clip_by_global_norm(grads: list[torch.Tensor],
-                        max_norm: float) -> list[torch.Tensor]:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float,
+                        norm: torch.Tensor | None = None
+                        ) -> list[torch.Tensor]:
     """``torch.nn.utils.clip_grad_norm_`` semantics: every gradient times
-    min(1, max_norm / (norm + 1e-6))."""
-    scale = torch.clamp(max_norm / (global_norm(grads) + 1e-6), max=1.0)
+    min(1, max_norm / (norm + 1e-6)); ``norm`` defaults to
+    ``global_norm(grads)``."""
+    if norm is None:
+        norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     return [g * scale.to(g.dtype) for g in grads]
 
 
 def apply_gradients(params: dict, loss: torch.Tensor, models, lr: float,
-                    clip_norm: float, reduce=None) -> None:
+                    clip_norm: float, reduce=None, norms=None) -> None:
     """Backward of ``loss``, then per-model clip (reference
     src/utils.py:185-186) and SGD, in place.  ``params`` maps each name in
     ``models`` to a pytree of leaf tensors; a model the loss does not reach
     gets a zero gradient (its params stay).  ``reduce`` maps the list of
-    gradients before the clip (the distributed steps' mean over ranks)."""
+    gradients before the clip (the distributed steps' mean over ranks);
+    ``norms`` maps {model: its gradients} to {model: the norm its clip
+    uses} (by default each model's :func:`global_norm`)."""
     leaves = {k: tree_leaves(params[k]) for k in models}
     flat = [p for k in models for p in leaves[k]]
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
@@ -49,22 +57,25 @@ def apply_gradients(params: dict, loss: torch.Tensor, models, lr: float,
              for p, g in zip(flat, grads)]
     if reduce is not None:
         grads = reduce(grads)
-    at = 0
+    split, at = {}, 0
     for k in models:
-        n = len(leaves[k])
-        sgd_update(leaves[k], clip_by_global_norm(grads[at:at + n],
-                                                  clip_norm), lr)
-        at += n
+        split[k] = grads[at:at + len(leaves[k])]
+        at += len(leaves[k])
+    norm = {} if norms is None else norms(split)
+    for k in models:
+        sgd_update(leaves[k], clip_by_global_norm(split[k], clip_norm,
+                                                  norm.get(k)), lr)
 
 
 def apply_gradients_mean(params: dict, loss: torch.Tensor, lr: float,
-                         clip_norm: float, group=None) -> torch.Tensor:
+                         clip_norm: float, group=None,
+                         norms=None) -> torch.Tensor:
     """The distributed steps' update (JAX's ``pmean`` of the loss inside the
     differentiated function): the local backward of this rank's ``loss``,
     the mean over ranks of the float32 gradients, then the per-model clip
-    and SGD of :func:`apply_gradients` on the replicated params.  Returns
-    the mean of the ranks' losses (a device scalar), which the same
-    all-reduce carries."""
+    and SGD of :func:`apply_gradients` on the replicated params (``norms``
+    as there).  Returns the mean of the ranks' losses (a device scalar),
+    which the same all-reduce carries."""
     out = {}
 
     def reduce(grads):
@@ -72,8 +83,45 @@ def apply_gradients_mean(params: dict, loss: torch.Tensor, lr: float,
         return grads
 
     apply_gradients(params, loss, ("sage", "clf"), lr, clip_norm,
-                    reduce=reduce)
+                    reduce=reduce, norms=norms)
     return out["loss"]
+
+
+def apply_gradients_sharded(params: dict, loss: torch.Tensor, lr: float,
+                            clip_norm: float, mesh: Mesh) -> torch.Tensor:
+    """The tensor-parallel step's update (JAX's step under GSPMD, with
+    ``parallel.mesh.shard_params``' placement): :func:`apply_gradients_mean`
+    over the data group, whose per-model clip takes the global norm over
+    the model group: the squares of every sharded leaf summed there (one
+    all-reduce for both models), each replicated leaf counted once.
+    Returns the mean of the data ranks' losses (a device scalar).
+
+    A replicated leaf's gradient must be whole on every model rank, as the
+    classifier bias's is (it is taken after the partial logits are
+    summed).  Each rank's grads of a replicated SageLayer leaf (an LSTM
+    cell) would hold only its slice's share, so ``train.dense`` refuses
+    LSTM on a model axis."""
+    models = ("sage", "clf")
+    placed = {k: tree_leaves(map_with_paths(
+        lambda path, leaf: sharded_dim(path, leaf) is not None, params[k],
+        (k,))) for k in models}
+
+    def norms(split):
+        # the sharded leaves' squares first, summed over the model group,
+        # then the replicated ones': the order of global_norm's sum where
+        # the sharded leaves come first (at n_model 1 the same bits)
+        squares = torch.stack([
+            sum(g.float().square().sum()
+                for g, s in zip(split[k], placed[k]) if s)
+            + torch.zeros((), device=loss.device) for k in models])
+        dist.all_reduce(squares, op=dist.ReduceOp.SUM,
+                        group=mesh.model_group)
+        return {k: torch.sqrt(squares[i] + sum(
+            g.float().square().sum() for g, s in zip(split[k], placed[k])
+            if not s)) for i, k in enumerate(models)}
+
+    return apply_gradients_mean(params, loss, lr, clip_norm, mesh.data_group,
+                                norms=norms)
 
 
 @torch.no_grad()

@@ -11,13 +11,14 @@ Port of ``graphsage_tpu/utils/obs.py``:
 - ``collective_watchdog`` dumps diagnostics if a guarded block (the first
   training step, which also loads the kernels) has not finished in time;
 - ``maybe_inject_test_wedge`` is the fault-injection seam of the
-  auto-resume supervisor's tests (``graphsage_torch.supervise``).
+  auto-resume supervisor's tests (``graphsage_torch.supervise``);
+- ``profile`` writes a ``torch.profiler`` trace of a block, and
+  ``enable_nan_checks`` turns autograd's NaN checks on and off.
 
 The CLI exits with code 17 on :class:`FetchDeadlineError`, and the
 supervisor relaunches it with ``--resume``.  In place of the JAX module's
 mesh dump, ``collective_watchdog`` reports the ``torch.distributed``
-group.  Its ``profile`` and ``enable_nan_checks`` are reached by no entry
-point and are not ported (item 17).
+group.
 """
 
 from __future__ import annotations
@@ -46,6 +47,38 @@ class MetricsLogger:
             with open(self.path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
         return rec
+
+
+@contextlib.contextmanager
+def profile(log_dir: str):
+    """Trace the enclosed block with ``torch.profiler`` (the host's ops,
+    and the card's kernels where there is a card) and write the trace
+    into ``log_dir`` as Chrome trace JSON when the block ends.  Yields the
+    trace file's path.  The JAX module writes a ``jax.profiler`` trace
+    directory for TensorBoard instead."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with torch_profile(activities=activities) as prof:
+        yield path
+    prof.export_chrome_trace(path)
+
+
+def enable_nan_checks(enable: bool = True) -> None:
+    """Turn autograd's anomaly mode with NaN checks on or off
+    (``torch.autograd.set_detect_anomaly(enable, check_nan=True)``), the
+    port's ``jax_debug_nans``.  The coverage differs: JAX checks the
+    output of every operation it runs, forward ones included; anomaly
+    mode checks what each backward function returns, so it raises where
+    a gradient first turns NaN (naming the forward op whose backward it
+    is) and not where a forward value does, and it checks nothing that
+    runs outside autograd (``torch.no_grad`` serving, the samplers)."""
+    torch.autograd.set_detect_anomaly(enable, check_nan=True)
 
 
 class FetchDeadlineError(RuntimeError):

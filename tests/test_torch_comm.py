@@ -10,7 +10,12 @@ collectives compute, written out in numpy:
   dx_r[q] = cot_q[r];
 - all_gather_rows (``lax.all_gather(tiled=True)``): the ranks' rows
   stacked; its gradient is the SUM reduce-scatter (``psum_scatter``);
-- mean_over_ranks: the mean of the ranks' tensors (``pmean``).
+- mean_over_ranks: the mean of the ranks' tensors (``pmean``);
+- all_gather_cols (the tensor-parallel join, GSPMD's all-gather of column
+  slices): the ranks' columns side by side; its gradient is the SUM
+  reduce-scatter of the column slices;
+- sum_partials (GSPMD's all-reduce of partial products): the sum of the
+  ranks' tensors; its gradient is each rank's own cotangent.
 
 The exchanges are copies, exact in float32 and bfloat16 (a bfloat16
 gradient of a float32 cotangent is the cotangent rounded).  The sums (the
@@ -86,6 +91,42 @@ def test_all_gather_rows_forward_and_reduce_scatter_backward(ranks, dtype):
             mag = sum(np.abs(t) for t in terms)
             ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0**-126))) - 7)
             assert (np.abs(got - sum(terms)) <= world * ulp).all()
+
+
+def _assert_sum(got: np.ndarray, terms: list, dtype: str, world: int):
+    """got is the sum of terms, added in the backend's order: float32
+    within rtol 1e-6, bfloat16 within P ulps of the terms' magnitudes."""
+    if dtype == "float32":
+        np.testing.assert_allclose(got, sum(terms), rtol=1e-6, atol=1e-6)
+        return
+    mag = sum(np.abs(t) for t in terms)
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0**-126))) - 7)
+    assert (np.abs(got - sum(terms)) <= world * ulp).all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_all_gather_cols_forward_and_reduce_scatter_backward(ranks, dtype):
+    world, res = ranks
+    want = np.concatenate([res[q][dtype]["c"] for q in range(world)],
+                          axis=1)
+    for r in range(world):
+        np.testing.assert_array_equal(res[r][dtype]["cols"], want)
+        cols = slice(2 * r, 2 * r + 2)
+        _assert_sum(res[r][dtype]["dc"],
+                    [_as(dtype, res[q][dtype]["cot3"][:, cols])
+                     for q in range(world)], dtype, world)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_sum_partials_forward_and_identity_backward(ranks, dtype):
+    world, res = ranks
+    terms = [res[q][dtype]["s"] for q in range(world)]
+    for r in range(world):
+        _assert_sum(res[r][dtype]["summed"], terms, dtype, world)
+        np.testing.assert_array_equal(res[r][dtype]["summed"],
+                                      res[0][dtype]["summed"])
+        np.testing.assert_array_equal(res[r][dtype]["ds"],
+                                      _as(dtype, res[r][dtype]["cot4"]))
 
 
 def test_mean_over_ranks(ranks):

@@ -373,6 +373,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.supervise, graphsage_torch.parallel, "
         "graphsage_torch.parallel.comm, graphsage_torch.parallel.halo, "
         "graphsage_torch.parallel.multihost, "
+        "graphsage_torch.parallel.mesh, "
         "graphsage_torch.parallel.partition, "
         "graphsage_torch.train.cached_dist, "
         "graphsage_torch.train.cached_dist_trainer, "

@@ -1,7 +1,7 @@
 """The port's fault handling (graphsage_torch.utils.obs): the metrics sink,
 the deadline-guarded fetch, the first-step watchdog and the test wedge, as
-tests/test_obs.py holds the JAX package's; and the trainers' fetches all
-going through the deadline guard."""
+tests/test_obs.py holds the JAX package's; the trainers' fetches all
+going through the deadline guard; the profiler trace and the NaN checks."""
 
 import io
 import json
@@ -234,3 +234,39 @@ def test_fit_injects_the_test_wedge_at_epoch_one(small, tmp_path,
     assert [h["epoch"] for h in tr.history] == [0]
     tr.fit()                    # from epoch 1 again: the wedge fired once
     assert [h["epoch"] for h in tr.history] == [0, 1, 2]
+
+
+def test_profile_writes_a_trace(tmp_path):
+    """profile(log_dir) writes the block's torch.profiler trace (Chrome
+    JSON) into log_dir, at the path it yields."""
+    with obs.profile(str(tmp_path / "trace")) as path:
+        torch.randn(32, 32).matmul(torch.randn(32, 32)).sum()
+    assert path.startswith(str(tmp_path / "trace"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("matmul" in e.get("name", "") for e in events)
+
+
+class _NanBackward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x * 2
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * float("nan")
+
+
+def test_enable_nan_checks_raises_on_a_nan_in_the_backward():
+    """With the checks on, a backward that returns NaN raises, naming the
+    function; with them off, the NaN passes silently into the gradient."""
+    x = torch.ones(3, requires_grad=True)
+    obs.enable_nan_checks(True)
+    try:
+        with pytest.raises(RuntimeError, match="_NanBackward.*nan"):
+            _NanBackward.apply(x).sum().backward()
+    finally:
+        obs.enable_nan_checks(False)
+    assert not torch.is_anomaly_enabled()
+    _NanBackward.apply(x).sum().backward()
+    assert torch.isnan(x.grad).all()

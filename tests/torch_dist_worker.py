@@ -20,7 +20,13 @@ Jobs are (name, task, payload) with numpy payloads; the tasks:
 - ``cached_epoch``: local_refresh, then cached_epoch_reuse over a
   CachedDistStep on the rank's row of the epoch stack, the draws replayed
   (``draws``) or from the port's own sampler (``sampler_seed``);
-- ``infer``: full_graph_embeddings_sharded.
+- ``infer``: full_graph_embeddings_sharded;
+- ``mesh_step``: make_mesh, shard_params, then one tensor-parallel
+  make_dense_sup_step(mesh=...) step on replayed global draws, and the
+  params gathered back;
+- ``mesh_errors``: the ValueErrors of make_mesh on a mesh that does not
+  fit the group;
+- ``dryrun``: entry.dryrun_multichip over the group.
 """
 
 from __future__ import annotations
@@ -40,16 +46,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
+from graphsage_torch import entry  # noqa: E402
 from graphsage_torch.convert import params_to_numpy  # noqa: E402
 from graphsage_torch.data.graph import PaddedAdjacency  # noqa: E402
 from graphsage_torch.infer import full_graph_embeddings_sharded  # noqa: E402
 from graphsage_torch.models import Frontier, GraphSageConfig  # noqa: E402
-from graphsage_torch.parallel import comm  # noqa: E402
+from graphsage_torch.parallel import comm, mesh  # noqa: E402
 from graphsage_torch.parallel.halo import make_halo_gather  # noqa: E402
 from graphsage_torch.sampler.device import HopSampler  # noqa: E402
 from graphsage_torch.train.cached import cached_epoch_reuse  # noqa: E402
 from graphsage_torch.train.cached_dist import (CachedDistStep,  # noqa: E402
                                                local_refresh, local_rows)
+from graphsage_torch.train.dense import make_dense_sup_step  # noqa: E402
 from graphsage_torch.train.distributed import (  # noqa: E402
     DistBatch, dist_batch_to_device, make_dist_forward, make_dist_sup_step,
     make_dist_unsup_step, pairs_to_device)
@@ -94,9 +102,22 @@ def task_comm(p, rank, world):
         cot2 = _t(rng.randn(world * 2, 4).astype(np.float32))
         full = comm.all_gather_rows(z)
         (full.float() * cot2).sum().backward()
+        c = _t(rng.randn(3, 2).astype(np.float32)).to(dtype)
+        c.requires_grad_(True)
+        cot3 = _t(rng.randn(3, world * 2).astype(np.float32))
+        cols = comm.all_gather_cols(c)
+        (cols.float() * cot3).sum().backward()
+        s = _t(rng.randn(4, 3).astype(np.float32)).to(dtype)
+        s.requires_grad_(True)
+        cot4 = _t(rng.randn(4, 3).astype(np.float32))
+        summed = comm.sum_partials(s)
+        (summed.float() * cot4).sum().backward()
         out[name] = {"x": _np(x), "cot": _np(cot), "y": _np(y),
                      "dx": _np(x.grad), "z": _np(z), "cot2": _np(cot2),
-                     "full": _np(full), "dz": _np(z.grad)}
+                     "full": _np(full), "dz": _np(z.grad), "c": _np(c),
+                     "cot3": _np(cot3), "cols": _np(cols),
+                     "dc": _np(c.grad), "s": _np(s), "cot4": _np(cot4),
+                     "summed": _np(summed), "ds": _np(s.grad)}
     req = _t(rng.randint(0, 100, (world, 6)).astype(np.int32))
     out["int32"] = {"x": req.numpy(), "y": comm.all_to_all_rows(req).numpy()}
     a = _t(rng.randn(7).astype(np.float32))
@@ -193,9 +214,45 @@ def task_infer(p, rank, world):
         device="cpu")
 
 
+def task_mesh_step(p, rank, world):
+    """One rank of the (n_data x n_model) tensor-parallel dense step: its
+    shard_params before the step, the loss, its slices after, and the
+    params gathered back."""
+    cfg = GraphSageConfig(**p["cfg"])
+    m = mesh.make_mesh(p["n_data"], p["n_model"])
+    local = mesh.shard_params(_leaf_params(p["params"], CPU), m)
+    shards = params_to_numpy(local)
+    step = make_dense_sup_step(cfg, fanout=p["fanout"], lr=p["lr"],
+                               clip=p["clip"], mesh=m)
+    hop = ReplayHop(p["draws"])
+    loss = step(local, _t(p["feats"]), hop, _t(p["batch"]), _t(p["labels"]))
+    assert not hop.draws, "draws left over"
+    return {"data_rank": m.data_rank, "model_rank": m.model_rank,
+            "shards": shards, "loss": float(loss),
+            "local": params_to_numpy(local),
+            "gathered": params_to_numpy(mesh.gather_params(local, m))}
+
+
+def task_mesh_errors(p, rank, world):
+    out = {}
+    for name, (n_data, n_model) in p["meshes"].items():
+        try:
+            mesh.make_mesh(n_data, n_model)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def task_dryrun(p, rank, world):
+    return entry.dryrun_multichip(world, device="cpu")
+
+
 TASKS = {"comm": task_comm, "halo": task_halo, "dist_step": task_dist_step,
          "dist_forward": task_dist_forward,
-         "cached_epoch": task_cached_epoch, "infer": task_infer}
+         "cached_epoch": task_cached_epoch, "infer": task_infer,
+         "mesh_step": task_mesh_step, "mesh_errors": task_mesh_errors,
+         "dryrun": task_dryrun}
 
 
 def main(argv) -> int:
