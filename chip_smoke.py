@@ -51,8 +51,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
      prediction of compact_launches: the layer kernel (gather_mean,
      gather_max, or gather_rows for the LSTM's slot gather) 2 a step plus 2
      per embedding of val (and of test, when val F1 improved), pair_scores
-     1 a step under plus_unsup, and for MAX one tie-gather gather_rows a
-     step (layer 2's backward);
+     1 a step under plus_unsup, and for MAX one gather_max_bwd (the tie
+     split of layer 2's backward) a step;
    - the same epoch through the plain versions on the card, from the same
      initial params and RandomState (so the same host batches), in
      lockstep: each plain step starts from the kernel run's params of that
@@ -71,10 +71,13 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    gather_mean at the step's two layer shapes: the forward kernel
    row and the scatter-add gradient against autograd through the plain
    version.  gather_max at the MAX step's two layer shapes (exact), and
-   its tie-splitting backward (agg.max_aggregate_backward: the gather_rows
-   tie gather, the tie test, the scatter) against autograd through the
-   plain version, as a row of the whole composition; gather_rows at the LSTM
-   step's layer-1 slot gather.
+   its tie-splitting backward in two rows: the gather_max_bwd kernel (the
+   tie split) against max_tie_split_plain, bit for bit, and the whole
+   backward (agg.max_aggregate_backward: the kernel, then the scatter)
+   against autograd through the plain version, with the composition the
+   kernel replaced (the gather_rows tie gather, the tie test, the scatter)
+   timed as its ``earlier``; gather_rows at the LSTM step's layer-1 slot
+   gather.
 6. End to end through the entry points, on powerlaw:2000:10000: the CLI
    trains plus_unsup for one epoch on the card and exports a bundle
    (graphsage_torch.cli.run, what ``main`` runs); the bundle's params equal
@@ -137,7 +140,10 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
        train.dense.make_dense_sup_epoch;
    (g) compact plus_unsup MEAN through Trainer, 50 steps over the
        1,000-node split, as phase 4 runs it in float32; (j) compact sup
-       MAX gcn the same way (its layer-2 tie backward in bfloat16).
+       MAX gcn the same way (its layer-2 tie backward in bfloat16); and
+       gather_max's backward rows (phase 5's) at the dense layer-2 shape,
+       idx [4096, 11] over the relu of (f)'s [45056, 128] layer-2 input,
+       in float32 and bfloat16, 0 launches (no path trains dense MAX).
    For each: launch counts set to 0, the main path, counts read and held
    equal to those predicted from the code (in bfloat16 every gradient of
    a row gather is one scatter_rows launch: bf16_scatters, and one a step
@@ -334,7 +340,8 @@ REPLACES = {"gather_mean": "graphsage_tpu/ops/pallas_aggregate.py:60",
             "gather_max": "graphsage_tpu/ops/pallas_aggregate.py:76",
             "pair_scores": "graphsage_tpu/ops/sddmm.py:156",
             "gather_rows": "tools/pallas_microbench.py:87",
-            "scatter_rows": "graphsage_tpu/ops/pallas_aggregate.py:147"}
+            "scatter_rows": "graphsage_tpu/ops/pallas_aggregate.py:147",
+            "gather_max_bwd": "graphsage_tpu/ops/pallas_aggregate.py:173"}
 TRAIN_NODES, B_SZ, LR, FANOUT, SEED = 1000, 20, 0.7, 10, 824
 # kernels against plain versions, step by step from the same params (see
 # train_method): the pair-score kernel sums in another order than
@@ -367,6 +374,12 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+
+
+def launch_counts(**counts: int) -> dict:
+    """A launch count for every kernel of ``agg.LAUNCHES``: 0 where not
+    given."""
+    return {name: counts.get(name, 0) for name in agg.LAUNCHES}
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -573,9 +586,9 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
     busy = sum(t for t, _, _ in rows) / 1e3
     log(f"  profile: device busy {busy:.6f} ms of {what} "
         f"{wall_ms:.6f} (idle share {1 - busy / wall_ms:.4f}); by kernel:")
-    ours = ("gather_reduce_kernel", "pair_scores_kernel",
-            "gather_rows_kernel", "count_kernel", "place_kernel",
-            "sum_kernel")
+    ours = ("gather_reduce_kernel", "gather_max_bwd_kernel",
+            "pair_scores_kernel", "gather_rows_kernel", "count_kernel",
+            "place_kernel", "sum_kernel")
     for rank, (t, key, count) in enumerate(sorted(rows, reverse=True)):
         if rank < top or any(name in key for name in ours):
             log(f"    {t / 1e3:10.6f} ms  x{count:<3d} {key[:100]}")
@@ -586,8 +599,7 @@ def serving_launches(cfg: GraphSageConfig, lstm_hybrid: bool) -> dict:
     """The launches of one embeddings() call, from the code's rule: one
     gather_mean / gather_max a MEAN / MAX layer, and a gather_rows a block
     of an LSTM layer (infer.card_block at the layer's input width)."""
-    want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0, "scatter_rows": 0}
+    want = launch_counts()
     itemsize = graphsage.compute_dtype(cfg).itemsize
     for layer in range(cfg.num_layers):
         agg_func = "MEAN" if lstm_hybrid and layer == 0 else cfg.agg_func
@@ -767,17 +779,17 @@ def compact_launches(cfg: GraphSageConfig, method: str, step_args: list,
     (gather_mean, gather_max, or gather_rows for the LSTM's slot gather);
     per step under an unsupervised loss one pair_scores where
     sddmm.dense_block_pays picks the score block for the step's pair batch;
-    and for MAX one tie-gather gather_rows a differentiated layer a step
-    (every layer above the first: the first aggregates constant feature
-    rows); in bfloat16, the backward's scatter_rows by bf16_scatters."""
+    and for MAX one gather_max_bwd (the backward's tie split) a
+    differentiated layer a step (every layer above the first: the first
+    aggregates constant feature rows); in bfloat16, the backward's
+    scatter_rows by bf16_scatters."""
     steps = len(step_args)
-    want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0, "scatter_rows": 0}
+    want = launch_counts()
     kernel = {"MEAN": "gather_mean", "MAX": "gather_max",
               "LSTM": "gather_rows"}[cfg.agg_func]
     want[kernel] += cfg.num_layers * (steps + evals)
     if cfg.agg_func == "MAX":
-        want["gather_rows"] += (cfg.num_layers - 1) * steps
+        want["gather_max_bwd"] += (cfg.num_layers - 1) * steps
     for pb, cb, _, _ in step_args:
         want["scatter_rows"] += bf16_scatters(
             cfg, NODES, len(cb.x0_ids), [f.idx.shape[0] for f in cb.frontiers])
@@ -1228,24 +1240,90 @@ def mean_step_rows(step_inputs: dict, launches: int,
     return rows
 
 
-def max_backward_row(label: str, embed: torch.Tensor, idx: torch.Tensor,
-                     mask: torch.Tensor, launches: int) -> dict:
-    """gather_max's backward (agg.max_aggregate_backward: the tie gather
-    through the gather_rows kernel, the tie test, the division and the
-    scatter) against autograd through the plain version (bfloat16: against
-    the same composition on the CPU, bit for bit), and its row:
-    the composition's time beside its byte bound and the plain backward's
-    time (no one PyTorch call computes it: library_ms is null)."""
+def max_backward_composition(g: torch.Tensor, embed: torch.Tensor,
+                             idx: torch.Tensor, mask: torch.Tensor,
+                             out: torch.Tensor) -> torch.Tensor:
+    """gather_max's backward as it was composed on the card before the
+    gather_max_bwd kernel, the ``earlier`` of its rows: the tie gather
+    through the gather_rows kernel, the tie test and the division in
+    PyTorch, then scatter_rows."""
+    u, s = idx.shape
+    d = embed.shape[1]
+    flat = idx.reshape(-1)
+    gathered = gather.gather_rows_kernel(embed, flat).view(u, s, d)
+    is_max = ((gathered == out[:, None, :])
+              & (mask[..., None] > 0)).to(g.dtype)
+    denom = is_max.sum(dim=1, keepdim=True).clamp_min(1.0)
+    contrib = (g[:, None, :] * is_max / denom).to(embed.dtype)
+    return scatter.scatter_rows(contrib.reshape(-1, d), flat, embed.shape[0])
+
+
+def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
+                      mask: torch.Tensor, launches: int) -> list:
+    """gather_max's backward at one shape, two rows.  The gather_max_bwd
+    kernel (the tie split, contrib [U*S, D]) against max_tie_split_plain
+    on the card and on the CPU, bit for bit; its bound the bytes it must
+    move (the valid slots' distinct rows, idx, mask, g, out, contrib).
+    The whole backward (agg.max_aggregate_backward: the kernel, then
+    index_add_ in float32 or scatter_rows in bfloat16) against autograd
+    through the plain version (bfloat16: against the same backward on the
+    CPU, bit for bit); its bound the bytes (g, out, idx, mask, the rows
+    referenced, the [M, D] output) and, in bfloat16, the longest row's
+    chain of tied adds at ADD_NS each; its ``earlier`` the composition the
+    kernel replaced (max_backward_composition).  No one PyTorch call
+    computes either: library_ms is null."""
     g = torch.randn(idx.shape[0], embed.shape[1],
                     generator=torch.Generator().manual_seed(11)
                     ).to(embed.device, embed.dtype)
     with torch.no_grad():
         out = agg.max_aggregate(embed, idx, mask)
+    (u, s), (m, d) = idx.shape, embed.shape
+    es = embed.element_size()
+    bf16 = embed.dtype == torch.bfloat16
+
+    # -------- the tie split alone
+    split = lambda: agg.gather_max_bwd_kernel(g, embed, idx, mask, out)
+    contrib = split()
+    torch.cuda.synchronize()
+    assert torch.equal(contrib, agg.max_tie_split_plain(
+        g, embed, idx, mask, out)), label
+    assert torch.equal(contrib.cpu(), on_cpu(agg.max_tie_split_plain, g,
+                                             embed, idx, mask, out)), label
+    valid = mask > 0
+    read = int(torch.unique(idx[valid]).numel())
+    split_bytes = (read * d * es + 2 * u * s * 4 + 2 * u * d * es
+                   + u * s * d * es)
+    split_ops = int(valid.sum()) * d + 2 * u * s * d
+    bound, bound_by = microbench.bound_ms(split_bytes, split_ops)
+    ties = contrib.reshape(u, s, d) != 0
+    kernel = {
+        "name": f"gather_max_bwd ({label})",
+        "route": "cuda",
+        "source": SOURCE,
+        "replaces": REPLACES["gather_max_bwd"],
+        "launches": launches,
+        "max_abs_err": 0.0,
+        **times(split, "gather_max_bwd_kernel", reps=20),
+        "plain_ms": cuda_ms(lambda: agg.max_tie_split_plain(
+            g, embed, idx, mask, out), reps=20),
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "library_device_ms": None,
+    }
+    log(f"kernel {kernel['name']}: embed {tuple(embed.shape)} "
+        f"{embed.dtype}, idx {tuple(idx.shape)}, {int(valid.sum())} valid "
+        f"slots, {read} rows read, {int(ties.any(2).sum())} slots tied in "
+        f"some column, {split_bytes} bytes; contrib [{u * s}, {d}] "
+        f"{timing_note(kernel)} [plain: max_tie_split_plain on the card] "
+        f"equal to the plain version on the card and on the CPU")
+
+    # -------- the whole backward
     got = agg.max_aggregate_backward(g, embed, idx, mask, out)
     leaf = embed.detach().clone().requires_grad_(True)
     plain_out = agg.max_aggregate_plain(leaf, idx, mask)
     torch.cuda.synchronize()
-    if embed.dtype == torch.bfloat16:
+    if bf16:
         # JAX's order of the bfloat16 adds: the CPU's result, bit for bit
         want = on_cpu(agg.max_aggregate_backward, g, embed, idx, mask, out)
         assert torch.equal(got.cpu(), want), label
@@ -1253,34 +1331,52 @@ def max_backward_row(label: str, embed: torch.Tensor, idx: torch.Tensor,
     else:
         want, = torch.autograd.grad(plain_out, leaf, g, retain_graph=True)
         err = check_close(f"gather_max backward {label}", got, want)
-
-    (u, s), (m, d) = idx.shape, embed.shape
-    es = embed.element_size()
+    earlier = max_backward_composition(g, embed, idx, mask, out)
+    torch.cuda.synchronize()
+    assert torch.equal(earlier, got) or not bf16, label
     rows_read = int(torch.unique(idx).numel())
     nbytes = (2 * u * d * es + 2 * u * s * 4 + rows_read * d * es
               + m * d * es)
-    row = {
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    nonzero = contrib.ne(0).any(dim=1)
+    chain = int(torch.bincount(idx.reshape(-1)[nonzero].long(),
+                               minlength=m).max()) if bf16 else 0
+    chain_ms = chain * ADD_NS / 1e6
+    whole = {
         "name": f"gather_max backward ({label})",
         "route": "cuda",
-        "source": GATHER_SOURCE,
-        "replaces": REPLACES["gather_max"],
+        "source": SOURCE,
+        "replaces": REPLACES["gather_max_bwd"],
         "launches": launches,
         "max_abs_err": err,
         **times(lambda: agg.max_aggregate_backward(g, embed, idx, mask, out),
                 None, reps=20),
         "plain_ms": cuda_ms(lambda: torch.autograd.grad(
             plain_out, leaf, g, retain_graph=True), reps=20),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        "bound_ms": max(bytes_ms, chain_ms),
+        "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
         "library_ms": None,
         "library_device_ms": None,
+        "bytes_ms": bytes_ms,
+        "chain_ms": chain_ms,
     }
-    log(f"kernel {row['name']}: embed {tuple(embed.shape)} {embed.dtype}, "
-        f"idx {tuple(idx.shape)}, {rows_read} rows read, {nbytes} bytes; "
-        f"the whole composition (gather_rows, tie test, scatter into "
-        f"[{m}, {d}]) {timing_note(row)} [plain: autograd through "
-        f"max_aggregate_plain's amax] max_abs_err {err}")
-    return row
+    composed = lambda: max_backward_composition(g, embed, idx, mask, out)
+    whole["earlier_ms"] = cuda_ms(composed, reps=20)
+    whole["earlier_device_ms"] = device_ms(composed)
+    # the scatter alone: what the whole backward adds to the tie split
+    whole["scatter_device_ms"] = device_ms(lambda: scatter.scatter_rows(
+        contrib, idx.reshape(-1), m))
+    log(f"kernel {whole['name']}: embed {tuple(embed.shape)} {embed.dtype}, "
+        f"idx {tuple(idx.shape)}, {rows_read} rows read, {nbytes} bytes "
+        f"({bytes_ms:.6f} ms), the longest row {chain} tied adds "
+        f"({chain_ms:.6f} ms at {ADD_NS:.6f} ns an add); gather_max_bwd, "
+        f"then {'scatter_rows' if bf16 else 'index_add_'} into [{m}, {d}]: "
+        f"{timing_note(whole)} [plain: autograd through "
+        f"max_aggregate_plain's amax] earlier (the composition: tie "
+        f"gather, tie test, scatter) ms {whole['earlier_ms']:.6f} device_ms "
+        f"{whole['earlier_device_ms']:.6f}; the scatter alone device_ms "
+        f"{whole['scatter_device_ms']:.6f}; max_abs_err {err}")
+    return [kernel, whole]
 
 
 def max_step_rows(step_inputs: dict, launches: dict) -> list:
@@ -1295,9 +1391,10 @@ def max_step_rows(step_inputs: dict, launches: dict) -> list:
         label = f"{dtype} compact layer {layer}"
         rows.append(kernel_row("gather_max", label, embed, idx, mask,
                                launches["gather_max"]))
-        rows.append(max_backward_row(
+        rows.extend(max_backward_rows(
             f"{label}, idx {list(idx.shape)} over {list(embed.shape)}",
-            embed, idx, mask, launches["gather_rows"] if layer > 1 else 0))
+            embed, idx, mask, launches["gather_max_bwd"] if layer > 1
+            else 0))
     return rows
 
 
@@ -1375,8 +1472,7 @@ def predicted_launches(tr: CachedTrainer, records: list,
 
     every = tr.tcfg.refresh_every
     refreshes = sum(1 for ep in range(epochs) if ep % every == 0)
-    want = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0, "scatter_rows": 0}
+    want = launch_counts()
     bf16 = tr.mcfg.compute_dtype == "bfloat16"
     for rec in records:
         batch, _, _, pairs = rec["args"]
@@ -1842,10 +1938,10 @@ def bf16_cached(label: str, agg_func: str, b: int, steps: int, feats16,
     run_s = time.perf_counter() - t0
     launches = dict(agg.LAUNCHES)
     full = cached.layer1_full_table(NODES, FEATS, b * (FANOUT + 1), HIDDEN)
-    want = {"gather_mean": int(agg_func != "MAX"),
-            "gather_max": int(agg_func == "MAX"), "pair_scores": 0,
-            "gather_rows": steps * (1 if full else 2),
-            "scatter_rows": steps * int(full)}
+    want = launch_counts(gather_mean=int(agg_func != "MAX"),
+                         gather_max=int(agg_func == "MAX"),
+                         gather_rows=steps * (1 if full else 2),
+                         scatter_rows=steps * int(full))
     log(f"{tag} main path: refresh_leaf_cache + cached_epoch_reuse, "
         f"{steps} steps in {run_s:.3f} s; launches {launches}; predicted "
         f"from the code {want}; loss curve "
@@ -1929,10 +2025,10 @@ def bf16_dense(feats16, tables, labels, dev: torch.device) -> dict:
     launches = dict(agg.LAUNCHES)
     # one gather_mean a MEAN layer a step, whichever layer form
     k = FANOUT + 1
-    want = {"gather_mean": cfg.num_layers * DENSE_STEPS, "gather_max": 0,
-            "pair_scores": 0, "gather_rows": 0,
-            "scatter_rows": DENSE_STEPS * bf16_scatters(
-                cfg, NODES, DENSE_B * k * k, [DENSE_B * k, DENSE_B])}
+    want = launch_counts(
+        gather_mean=cfg.num_layers * DENSE_STEPS,
+        scatter_rows=DENSE_STEPS * bf16_scatters(
+            cfg, NODES, DENSE_B * k * k, [DENSE_B * k, DENSE_B]))
     log(f"{tag} main path: make_dense_sup_epoch, {DENSE_STEPS} steps in "
         f"{run_s:.3f} s; launches {launches}; predicted from the code "
         f"{want}; loss curve " + " ".join(f"{x:.6f}" for x in
@@ -2037,7 +2133,16 @@ def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> tuple:
     rows.extend(mean_step_rows({"gather_mean": f["inputs"]},
                                f["launches"]["gather_mean"], what="dense",
                                scatter_launches=f["launches"]["scatter_rows"]))
-    del f
+    # gather_max's backward at the dense layer-2 shape, over the relu of
+    # (f)'s layer-2 input on its frontier (each id once): no path here
+    # trains dense MAX, so 0 launches
+    embed, idx, mask = f["inputs"][1]
+    h = torch.relu(embed.float())
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        rows.extend(max_backward_rows(
+            f"{name} dense layer 2, idx {list(idx.shape)} over "
+            f"{list(h.shape)}", h.to(dtype), idx, mask, 0))
+    del f, embed, idx, mask, h
     phase_mark("phase 9 (f): bf16 dense")
 
     unsup = train_method("plus_unsup", train_ds, dev, free_running=False,
@@ -2056,8 +2161,7 @@ def bf16_phase(ds, train_ds, dev: torch.device, phase_mark) -> tuple:
     phase_mark("phase 9 (g): bf16 compact plus_unsup")
 
     # (j) compact sup MAX gcn: gather_max forward, and layer 2's backward
-    # composition (the tie gather through gather_rows, the tie test in
-    # bfloat16, scatter_rows)
+    # (gather_max_bwd, then scatter_rows)
     res = train_method("sup", train_ds, dev, "MAX", True, free_running=False,
                        dtype="bfloat16")
     summaries["j"] = {"ms_per_step": res["ms_per_step"]}
@@ -2818,9 +2922,9 @@ def dist_cached_n(label: str, feats16, tables, labels, ref_run: dict,
     launches = dict(agg.LAUNCHES)
     # one refresh; a step takes its layer-1 rows out of the all-gathered
     # table (gather_rows) and scatters their bf16 gradient (scatter_rows)
-    want = {"gather_mean": int(agg_func == "MEAN"),
-            "gather_max": int(agg_func == "MAX"), "pair_scores": 0,
-            "gather_rows": steps, "scatter_rows": steps}
+    want = launch_counts(gather_mean=int(agg_func == "MEAN"),
+                         gather_max=int(agg_func == "MAX"),
+                         gather_rows=steps, scatter_rows=steps)
     log(f"{tag} main path: local_refresh + cached_epoch_reuse over "
         f"CachedDistStep, {steps} steps in {run_s:.3f} s; launches "
         f"{launches}; predicted from the code {want}; loss curve "
@@ -3002,8 +3106,8 @@ def dist_halo_o(ds, feats16, dev: torch.device) -> tuple:
     # two gather_mean layers, and in bf16 a scatter_rows for each gather's
     # gradient: the three of the exchange, both aggregates' and both
     # self-row gathers' (take_rows)
-    want = {"gather_mean": 2 * steps, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 3 * steps, "scatter_rows": 7 * steps}
+    want = launch_counts(gather_mean=2 * steps, gather_rows=3 * steps,
+                         scatter_rows=7 * steps)
     # the exchange's launches by shape: its gathers, and their backward
     # (GatherRows' scatter_rows, keyed by the table it scatters into)
     by_shape = collections.Counter()
@@ -3103,8 +3207,8 @@ def dist_unsup_p(ds, dev: torch.device) -> tuple:
             FANOUT + 1) ** 2
         blocks += sddmm.dense_block_pays(
             b, u, pairs["pos_q"].numel() + pairs["neg_q"].numel(), HIDDEN)
-    want = {"gather_mean": 2 * steps, "gather_max": 0, "pair_scores": blocks,
-            "gather_rows": 3 * steps, "scatter_rows": 0}
+    want = launch_counts(gather_mean=2 * steps, pair_scores=blocks,
+                         gather_rows=3 * steps)
     assert blocks > 0
     records = dist_counted(tag, step, params, feats_local, built, want)
     replay_lockstep(tag, step, params, records, plain_dist,
@@ -3158,8 +3262,7 @@ def sharded_serving_q(ds, dev: torch.device) -> tuple:
         torch.cuda.synchronize()
         launches = dict(agg.LAUNCHES)
         name = "gather_mean" if agg_func == "MEAN" else "gather_max"
-        want = {k: 0 for k in launches}
-        want[name] = cfg.num_layers
+        want = launch_counts(**{name: cfg.num_layers})
         assert launches == want, (launches, want)
         single = infer.full_graph_embeddings(sage, cfg, feats, pad,
                                              device=dev, fetch=False)

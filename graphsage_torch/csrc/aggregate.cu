@@ -53,6 +53,40 @@
 //   and smaller blocks, more of them, did not shorten it.
 // Index values of valid slots must lie in [0, M): they are not checked
 // here, as the TPU kernel does not check them.
+//
+// gather_max_bwd: the tie split of gather_max's backward, the custom VJP
+// graphsage_tpu/ops/pallas_aggregate.py::_pallas_max_bwd up to its
+// scatter:
+//   t[u,s,d]  = embed[idx[u,s], d] == out[u,d] and mask[u,s] > 0
+//   c[u,d]    = max(sum_s t[u,s,d], 1)    (rounded to bfloat16 in bfloat16)
+//   contrib[u*S + s, d] = g[u,d] * t / c, rounded once to the embed dtype
+// for every slot, masked ones too (their rows are g * 0 / c: +-0, or NaN
+// where g is +-inf or NaN), so that the scatter that follows
+// (ops/scatter.py: scatter_rows in bfloat16, index_add_ in float32) reads
+// all U*S rows.  The product, the IEEE division (no fast math) and the one
+// rounding are the plain composition's (ops/aggregate.py::
+// max_tie_split_plain) operation for operation, so the two agree bit for
+// bit; values are compared, so +0 and -0 tie as == has them tie.
+// Bound: bytes.  It reads the valid slots' rows (each referenced row
+// once), idx, mask, g and out, and writes U*S*D elements: at compact layer
+// 2 (idx [1024, 11] over [8192, 128] float32) about 10 MB, 2.9 us.  It
+// takes gather_max's launch plan (unit, lanes a row, units a lane a pass)
+// and its loads: a valid slot's row is read once, compared with the
+// lane's out columns, and the result kept as bit s of a 32-bit mask for
+// each column the lane owns; __popc of the masks counts the ties.  A row
+// of one unit a lane (width 128) issues the loads of four slots before
+// comparing any, so that they are in flight together.  A column's two
+// possible shares (g / c tied, g * 0 untied: g * 1 is g, and c >= 1 keeps
+// +-0 and NaN) are computed and rounded once; the S contribution rows are
+// then written with the same vector units, each word selected between
+// them by the slot's bits.  With more than 32 slots a first pass counts
+// the ties chunk by chunk and a second reloads each chunk's rows (from L2
+// at the main path's sizes) to rebuild its masks before the stores.
+// Measured on the H100 (PERF.md): a first version that divided
+// and rounded once a slot and column (the composition's order of work)
+// was latency-bound at compact layer 2, with 4-8 warps an SM; the grouped
+// loads took 2-9% off the whole backward against the same kernel without
+// them, in one call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,7 +97,7 @@ namespace {
 constexpr int kBlock = 256;  // threads a block
 constexpr unsigned kFullMask = 0xffffffffu;
 
-enum Kind { kMean = 0, kMax = 1 };
+enum Kind { kMean = 0, kMax = 1, kMaxBwd = 2 };
 
 // A unit of UNIT bytes and its 32-bit words (UNIT 2: one half word).
 template <int UNIT> struct Unit;
@@ -223,12 +257,179 @@ gather_reduce_kernel(const char* __restrict__ embed, int64_t stride_bytes,
   }
 }
 
+// The tie masks of the slots [b0, b0 + 32) of this lane's row: bit s - b0
+// of bits[k][e] is set where slot s is valid and its row equals out in the
+// lane's column (k, e).  Every lane of the warp calls it with one b0.
+template <typename T, int UNIT, int LANES, int KC>
+__device__ __forceinline__ void tie_bits(
+    const char* __restrict__ embed, int64_t stride_bytes,
+    const int32_t* __restrict__ row_idx, const float* __restrict__ row_mask,
+    bool active, int sub, int c0, int S, int units, int b0,
+    const float (&o)[KC][UNIT / sizeof(T)],
+    uint32_t (&bits)[KC][UNIT / sizeof(T)]) {
+  using V = typename Unit<UNIT>::type;
+  constexpr int kVec = UNIT / static_cast<int>(sizeof(T));
+#pragma unroll
+  for (int k = 0; k < KC; ++k)
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) bits[k][e] = 0u;
+  // a row of at most one unit a lane reads kGroup slots' units before it
+  // compares any, so that their loads are in flight together (a wider
+  // row would hold KC times the registers)
+  constexpr int kGroup = KC == 1 ? 4 : 1;
+  const int end = min(S, b0 + 32);
+  for (int s0 = b0; s0 < end; s0 += LANES) {
+    int my_i = 0;
+    float my_w = 0.0f;
+    if (active && s0 + sub < end) {
+      my_i = __ldg(row_idx + s0 + sub);
+      my_w = __ldg(row_mask + s0 + sub);
+    }
+    const int n = min(LANES, end - s0);
+    for (int j0 = 0; j0 < n; j0 += kGroup) {  // LANES is a multiple of 4
+      V r[kGroup][KC];
+      bool valid[kGroup];
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        const int i = __shfl_sync(kFullMask, my_i, j0 + q, LANES);
+        const float w = __shfl_sync(kFullMask, my_w, j0 + q, LANES);
+        valid[q] = j0 + q < n && w > 0.0f;
+        const V* src = reinterpret_cast<const V*>(
+            embed + static_cast<int64_t>(valid[q] ? i : 0) * stride_bytes);
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          const int c = c0 + sub + k * LANES;
+          r[q][k] = valid[q] && c < units ? __ldg(src + c) : V{};
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kGroup; ++q) {
+        if (!valid[q]) continue;
+        const uint32_t bit = 1u << (s0 - b0 + j0 + q);
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          float f[kVec];
+          to_float<T, UNIT>(r[q][k], f);
+#pragma unroll
+          for (int e = 0; e < kVec; ++e)
+            if (f[e] == o[k][e]) bits[k][e] |= bit;
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int UNIT, int LANES, int KC>
+__global__ void __launch_bounds__(kBlock)
+gather_max_bwd_kernel(const char* __restrict__ embed, int64_t stride_bytes,
+                      const int32_t* __restrict__ idx,
+                      const float* __restrict__ mask,
+                      const char* __restrict__ out,
+                      const char* __restrict__ g, char* __restrict__ contrib,
+                      int U, int S, int units) {
+  using V = typename Unit<UNIT>::type;
+  constexpr int kVec = UNIT / static_cast<int>(sizeof(T));
+  const int sub = threadIdx.x % LANES;
+  const int64_t thread =
+      static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
+  // as in gather_reduce_kernel: whole warps leave, and a warp's second row
+  // past U keeps its lanes for the shuffles, inactive
+  if ((thread & ~int64_t{31}) / LANES >= U) return;
+  const int64_t row = thread / LANES;
+  const bool active = row < U;
+  const int32_t* row_idx = idx + row * S;
+  const float* row_mask = mask + row * S;
+  const V* out_row = reinterpret_cast<const V*>(out) + row * units;
+  const V* g_row = reinterpret_cast<const V*>(g) + row * units;
+  V* dst = reinterpret_cast<V*>(contrib) + row * S * units;
+  const int chunks = (S + 31) / 32;
+
+  for (int c0 = 0; c0 < units; c0 += KC * LANES) {  // one pass unless wide
+    float o[KC][kVec], gv[KC][kVec], cnt[KC][kVec];
+    uint32_t bits[KC][kVec];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      const int c = c0 + sub + k * LANES;
+      const bool here = active && c < units;
+      to_float<T, UNIT>(here ? out_row[c] : V{}, o[k]);
+      to_float<T, UNIT>(here ? g_row[c] : V{}, gv[k]);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) cnt[k][e] = 0.0f;
+    }
+    // count the ties; with one chunk its masks stay for the stores
+    for (int b = 0; b < chunks; ++b) {
+      tie_bits<T, UNIT, LANES, KC>(embed, stride_bytes, row_idx, row_mask,
+                                   active, sub, c0, S, units, 32 * b, o,
+                                   bits);
+#pragma unroll
+      for (int k = 0; k < KC; ++k)
+#pragma unroll
+        for (int e = 0; e < kVec; ++e)
+          cnt[k][e] += static_cast<float>(__popc(bits[k][e]));
+    }
+    // a slot's share is g * t / c with t in {0, 1}: g / c where it ties
+    // (g * 1 is g), g * 0 where it does not (+-0 / c is +-0 and NaN / c
+    // NaN, c >= 1), each rounded once to T; computed once a column, and
+    // kept as T's words, which a slot's store selects from by its bits
+    uint32_t tied[KC][Unit<UNIT>::kWords], untied[KC][Unit<UNIT>::kWords];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) {
+      float q[kVec], z[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        // the composition's denominator: the count in g's dtype, at least 1
+        float c = cnt[k][e];
+        if constexpr (sizeof(T) == 2) c = __uint_as_float(bf16_bits(c) << 16);
+        q[e] = __fdiv_rn(gv[k][e], fmaxf(c, 1.0f));
+        z[e] = __fmul_rn(gv[k][e], 0.0f);
+      }
+      Unit<UNIT>::split(from_float<T, UNIT>(q), tied[k]);
+      Unit<UNIT>::split(from_float<T, UNIT>(z), untied[k]);
+    }
+    for (int b = 0; b < chunks; ++b) {
+      if (chunks > 1)
+        tie_bits<T, UNIT, LANES, KC>(embed, stride_bytes, row_idx, row_mask,
+                                     active, sub, c0, S, units, 32 * b, o,
+                                     bits);
+      if (!active) continue;
+      const int end = min(S, 32 * b + 32);
+      for (int s = 32 * b; s < end; ++s) {
+        const int shift = s - 32 * b;
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          const int c = c0 + sub + k * LANES;
+          if (c < units) {
+            uint32_t w[Unit<UNIT>::kWords];
+#pragma unroll
+            for (int i = 0; i < Unit<UNIT>::kWords; ++i) {
+              // the bits of word i that belong to a tied element
+              uint32_t pick;
+              if constexpr (sizeof(T) == 4) {
+                pick = 0u - ((bits[k][i] >> shift) & 1u);
+              } else {
+                pick = 0xffffu & (0u - ((bits[k][2 * i] >> shift) & 1u));
+                if constexpr (kVec > 1)
+                  pick |= 0xffff0000u &
+                          (0u - ((bits[k][2 * i + 1] >> shift) & 1u));
+              }
+              w[i] = (tied[k][i] & pick) | (untied[k][i] & ~pick);
+            }
+            dst[static_cast<int64_t>(s) * units + c] = Unit<UNIT>::join(w);
+          }
+        }
+      }
+    }
+  }
+}
+
 struct Args {
   const char* embed;
   int64_t stride_bytes;
   const int32_t* idx;
   const float* mask;
-  char* out;
+  char* out;            // gather_max_bwd reads it (the forward's output)
+  const char* g;        // gather_max_bwd only
+  char* contrib;        // gather_max_bwd only
   int U, S, units;
   cudaStream_t stream;
 };
@@ -237,8 +438,14 @@ template <typename T, int KIND, int UNIT, int LANES, int KC>
 int launch(const Args& a) {
   const int64_t threads = static_cast<int64_t>(a.U) * LANES;
   const dim3 grid(static_cast<unsigned>((threads + kBlock - 1) / kBlock));
-  gather_reduce_kernel<T, KIND, UNIT, LANES, KC><<<grid, kBlock, 0, a.stream>>>(
-      a.embed, a.stride_bytes, a.idx, a.mask, a.out, a.U, a.S, a.units);
+  if constexpr (KIND == kMaxBwd)
+    gather_max_bwd_kernel<T, UNIT, LANES, KC><<<grid, kBlock, 0, a.stream>>>(
+        a.embed, a.stride_bytes, a.idx, a.mask, a.out, a.g, a.contrib, a.U,
+        a.S, a.units);
+  else
+    gather_reduce_kernel<T, KIND, UNIT, LANES, KC>
+        <<<grid, kBlock, 0, a.stream>>>(a.embed, a.stride_bytes, a.idx,
+                                        a.mask, a.out, a.U, a.S, a.units);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -267,8 +474,9 @@ int by_unit(int unit, int lanes, int kc, const Args& a) {
 
 template <int KIND>
 int dispatch(int dtype, int device, const void* embed, long long embed_stride,
-             const void* idx, const void* mask, void* out, int U, int S,
-             int D, int unit, int lanes, int kc, void* stream) {
+             const void* idx, const void* mask, const void* out,
+             const void* g, void* contrib, int U, int S, int D, int unit,
+             int lanes, int kc, void* stream) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t elt = dtype == 0 ? 4 : 2;
   const int64_t stride_bytes = static_cast<int64_t>(embed_stride) * elt;
@@ -279,15 +487,23 @@ int dispatch(int dtype, int device, const void* embed, long long embed_stride,
   // and the row width; 16 lanes a row only for rows of at most 16 units
   if (!unit_ok || reinterpret_cast<uintptr_t>(embed) % unit != 0 ||
       reinterpret_cast<uintptr_t>(out) % unit != 0 ||
+      reinterpret_cast<uintptr_t>(g) % unit != 0 ||
+      reinterpret_cast<uintptr_t>(contrib) % unit != 0 ||
       stride_bytes % unit != 0 || row_bytes % unit != 0 ||
       !((lanes == 16 && kc == 1 && row_bytes <= 16 * unit) ||
         (lanes == 32 && (kc == 1 || kc == 2 || kc == 4))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{static_cast<const char*>(embed), stride_bytes,
+  const Args a{static_cast<const char*>(embed),
+               stride_bytes,
                static_cast<const int32_t*>(idx),
-               static_cast<const float*>(mask), static_cast<char*>(out), U, S,
+               static_cast<const float*>(mask),
+               static_cast<char*>(const_cast<void*>(out)),
+               static_cast<const char*>(g),
+               static_cast<char*>(contrib),
+               U,
+               S,
                static_cast<int>(row_bytes / unit),
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return by_unit<float, KIND>(unit, lanes, kc, a);
@@ -310,16 +526,30 @@ int gs_gather_mean(int dtype, int device, const void* embed,
                    long long embed_stride, const void* idx, const void* mask,
                    void* out, int U, int S, int D, int unit, int lanes, int kc,
                    void* stream) {
-  return dispatch<kMean>(dtype, device, embed, embed_stride, idx, mask, out, U,
-                         S, D, unit, lanes, kc, stream);
+  return dispatch<kMean>(dtype, device, embed, embed_stride, idx, mask, out,
+                         nullptr, nullptr, U, S, D, unit, lanes, kc, stream);
 }
 
 int gs_gather_max(int dtype, int device, const void* embed,
                   long long embed_stride, const void* idx, const void* mask,
                   void* out, int U, int S, int D, int unit, int lanes, int kc,
                   void* stream) {
-  return dispatch<kMax>(dtype, device, embed, embed_stride, idx, mask, out, U,
-                        S, D, unit, lanes, kc, stream);
+  return dispatch<kMax>(dtype, device, embed, embed_stride, idx, mask, out,
+                        nullptr, nullptr, U, S, D, unit, lanes, kc, stream);
+}
+
+// gather_max's backward up to its scatter: out [U, D] (the forward's
+// output) and g [U, D] (its gradient), both contiguous in the embed dtype,
+// give contrib [U*S, D] (contiguous, embed dtype): g split among the valid
+// slots equal to out.  The other arguments and the return are
+// gs_gather_max's; the unit must also divide g's and contrib's addresses.
+int gs_gather_max_bwd(int dtype, int device, const void* embed,
+                      long long embed_stride, const void* idx,
+                      const void* mask, const void* out, const void* g,
+                      void* contrib, int U, int S, int D, int unit, int lanes,
+                      int kc, void* stream) {
+  return dispatch<kMaxBwd>(dtype, device, embed, embed_stride, idx, mask, out,
+                           g, contrib, U, S, D, unit, lanes, kc, stream);
 }
 
 const char* gs_error_string(int code) {

@@ -30,7 +30,12 @@ num_rows)`` of each tree: the whole call) take the main path's six shapes
 with the refresh-like table's ids, flattened, cut to J and taken mod the
 row count, so that they carry the graph's hubs (each row prints its
 longest chain); the contributions at masked slots are all-zero, as the
-sampler's padding makes them.
+sampler's padding makes them.  The ``gather_max backward`` rows time
+``max_aggregate_backward(g, embed, idx, mask, out)`` of each tree (the
+tie split and its scatter: every kernel of the call) at the compact MAX
+step's layer-2 shape in float32 and bfloat16 and at the dense pipeline's
+layer-2 shape (each id once, as a dense frontier has it), over a relu'd
+random table, so that zeros tie as they do in a layer's input.
 """
 
 from __future__ import annotations
@@ -83,6 +88,14 @@ ROWS = {
     "pair_scores ragged 3 x 1000, H 100": ("scores", (1000, 100, "float32",
                                                       100, 0),
                                            "scores_ragged"),
+    "gather_max backward compact layer 2 f32": ("max_bwd", (
+        8192, HIDDEN, "float32", HIDDEN, 0), "layer2"),
+    "gather_max backward compact (j) layer 2 bf16": ("max_bwd", (
+        8192, HIDDEN, "bfloat16", HIDDEN, 0), "layer2"),
+    "gather_max backward dense layer 2 f32": ("max_bwd", (
+        45056, HIDDEN, "float32", HIDDEN, 0), "dense_layer2"),
+    "gather_max backward dense layer 2 bf16": ("max_bwd", (
+        45056, HIDDEN, "bfloat16", HIDDEN, 0), "dense_layer2"),
 }
 # scatter_rows: name -> (J contributions, rows), width HIDDEN, bfloat16
 SCATTER_ROWS = {
@@ -147,6 +160,9 @@ def make_inputs(path: Path) -> None:
         "scores_cached": targets(1024, 20),
         "scores_512": targets(2048, 512),
         "scores_ragged": targets(1000, 3, (0, 17, 999)),
+        # a dense frontier's slots: each id of [45056] once
+        "dense_layer2": (torch.arange(45056, dtype=torch.int32).reshape(
+            4096, 11), uniform(45056, (4096, 11))[1]),
     }, path)
 
 
@@ -192,6 +208,14 @@ def worker(tree: str, inputs: str, match: str | None) -> None:
             table[mask] = 0.0
             fn, symbol = (lambda: sddmm.pair_scores_kernel(table, idx),
                           "pair_scores_kernel")
+        elif kind == "max_bwd":          # a relu'd table: zeros tie
+            table.clamp_min_(0.0)
+            g = torch.randn((idx.shape[0], d), generator=gen,
+                            device=dev).to(table.dtype)
+            with torch.no_grad():
+                h = agg.max_aggregate(table, idx, mask)
+            fn, symbol = (lambda: agg.max_aggregate_backward(
+                g, table, idx, mask, h), None)
         elif kind == "rows":
             fn, symbol = (lambda: gather.gather_rows_kernel(table, idx),
                           "gather_rows_kernel")

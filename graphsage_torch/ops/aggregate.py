@@ -26,10 +26,11 @@ backward is the JAX package's custom VJP (``_pallas_mean_bwd`` and
 scatters there, ``ops.scatter.scatter_rows`` here: JAX's order of the
 bfloat16 adds, the ``scatter_rows`` kernel on the card).  MAX routes each
 output element's gradient to the slots that hold the maximum and splits it
-equally among tied slots, as ``jax.grad`` of ``jnp.max`` does; its tie
-test gathers the slot rows again, through the ``gather_rows`` kernel on
-the card.  The CPU takes the same Functions with the plain forwards, so
-the CPU tests exercise the backwards the card runs.
+equally among tied slots, as ``jax.grad`` of ``jnp.max`` does: its tie
+split (``max_tie_split_plain`` on the CPU) is the ``gather_max_bwd``
+kernel on the card, one launch before the scatter.  The CPU takes the
+same Functions with the plain versions, so the CPU tests exercise the
+backwards the card runs.
 
 ``pair_cosine`` is the per-pair cosine score of the unsupervised losses
 (``graphsage_tpu/ops/aggregate.py:74-87``), plain PyTorch.
@@ -46,8 +47,8 @@ from graphsage_torch.ops import build
 # wrapper adds one where it launches its kernel and nowhere else; runs that
 # must show they went through the kernels set these to 0 before and read
 # them after.
-LAUNCHES = {"gather_mean": 0, "gather_max": 0, "pair_scores": 0,
-            "gather_rows": 0, "scatter_rows": 0}
+LAUNCHES = {"gather_mean": 0, "gather_max": 0, "gather_max_bwd": 0,
+            "pair_scores": 0, "gather_rows": 0, "scatter_rows": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
@@ -250,31 +251,86 @@ class _GatherMax(torch.autograd.Function):
         return max_aggregate_backward(g, embed, idx, mask, out), None, None
 
 
-def max_aggregate_backward(g: torch.Tensor, embed: torch.Tensor,
-                           idx: torch.Tensor, mask: torch.Tensor,
-                           out: torch.Tensor) -> torch.Tensor:
-    """d(embed) of the masked max (``_pallas_max_bwd``): gather the slot
-    rows (the ``gather_rows`` kernel on the card, ``index_select`` on the
-    CPU), mark the valid slots equal to the output in the embed dtype (the
-    forward returns exact slot values, so the test is exact in bfloat16
-    too), divide ``g`` by the number of tied slots, and add each slot's
-    share into a zero [M, D] in the embed dtype with
-    ``ops.scatter.scatter_rows``."""
-    # imported here: ops.gather and ops.scatter import this module
-    from graphsage_torch.ops.gather import (gather_rows_kernel,
-                                            gather_rows_plain)
-    from graphsage_torch.ops.scatter import scatter_rows
+def max_tie_split_plain(g: torch.Tensor, embed: torch.Tensor,
+                        idx: torch.Tensor, mask: torch.Tensor,
+                        out: torch.Tensor) -> torch.Tensor:
+    """The tie split of the masked max's backward (``_pallas_max_bwd`` up to
+    its scatter), plain: gather the slot rows, mark the valid slots equal
+    to the output (the forward returns exact slot values, so the test is
+    exact in bfloat16 too), divide ``g`` by the number of tied slots in
+    g's dtype, and round each slot's share to the embed dtype:
+    contrib [U*S, D], one row a slot, masked slots included."""
+    # imported here: ops.gather imports this module
+    from graphsage_torch.ops.gather import gather_rows_plain
 
     u, s = idx.shape
     d = embed.shape[1]
-    flat = idx.reshape(-1)
-    gather = gather_rows_kernel if embed.is_cuda else gather_rows_plain
-    gathered = gather(embed, flat).view(u, s, d)
+    gathered = gather_rows_plain(embed, idx.reshape(-1)).view(u, s, d)
     is_max = ((gathered == out[:, None, :])
               & (mask[..., None] > 0)).to(g.dtype)
     denom = is_max.sum(dim=1, keepdim=True).clamp_min(1.0)
     contrib = (g[:, None, :] * is_max / denom).to(embed.dtype)   # [U, S, D]
-    return scatter_rows(contrib.reshape(-1, d), flat, embed.shape[0])
+    return contrib.reshape(-1, d)
+
+
+def gather_max_bwd_kernel(g: torch.Tensor, embed: torch.Tensor,
+                          idx: torch.Tensor, mask: torch.Tensor,
+                          out: torch.Tensor) -> torch.Tensor:
+    """Launch the ``gather_max_bwd`` CUDA kernel: :func:`max_tie_split_plain`
+    in one launch, equal to it bit for bit.  Takes what
+    :func:`_check_kernel_args` allows, with g and out [U, D] contiguous in
+    the embed dtype on the same device."""
+    want = (idx.shape[0], embed.shape[-1])
+    for name, t in (("g", g), ("out", out)):
+        if tuple(t.shape) != want:
+            raise ValueError(f"expected {name} {list(want)}; got "
+                             f"{list(t.shape)}")
+        if t.dtype != embed.dtype:
+            raise TypeError(f"{name} must be {embed.dtype}, not {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != embed.device:
+            raise ValueError(f"{name} lies on {t.device}, embed on "
+                             f"{embed.device}")
+    _check_kernel_args(embed, idx, mask)
+    u, s = idx.shape
+    d = embed.shape[1]
+    contrib = torch.empty((u * s, d), dtype=embed.dtype, device=embed.device)
+    if contrib.numel() == 0:
+        return contrib
+    lib = build.load_library("aggregate")
+    elt = embed.element_size()
+    unit, lanes, kc = aggregate_plan(
+        elt, embed.data_ptr() % 16, embed.stride(0) * elt, d * elt,
+        (out.data_ptr() | g.data_ptr() | contrib.data_ptr()) % 16)
+    stream = torch.cuda.current_stream(embed.device).cuda_stream
+    rc = lib.gs_gather_max_bwd(
+        _DTYPE_CODES[embed.dtype], embed.device.index, embed.data_ptr(),
+        embed.stride(0), idx.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        g.data_ptr(), contrib.data_ptr(), u, s, d, unit, lanes, kc, stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_max_bwd launch failed: CUDA error {rc} "
+                           f"({lib.gs_error_string(rc).decode()})")
+    LAUNCHES["gather_max_bwd"] += 1
+    return contrib
+
+
+def max_aggregate_backward(g: torch.Tensor, embed: torch.Tensor,
+                           idx: torch.Tensor, mask: torch.Tensor,
+                           out: torch.Tensor) -> torch.Tensor:
+    """d(embed) of the masked max (``_pallas_max_bwd``): the tie split
+    (the ``gather_max_bwd`` kernel on a CUDA tensor,
+    :func:`max_tie_split_plain` on a CPU one), then each slot's share added
+    into a zero [M, D] in the embed dtype by ``ops.scatter.scatter_rows``."""
+    # imported here: ops.scatter imports this module
+    from graphsage_torch.ops.scatter import scatter_rows
+
+    if embed.is_cuda:
+        contrib = gather_max_bwd_kernel(g.contiguous(), embed, idx, mask,
+                                        out)
+    else:
+        contrib = max_tie_split_plain(g, embed, idx, mask, out)
+    return scatter_rows(contrib, idx.reshape(-1), embed.shape[0])
 
 
 def max_aggregate(embed: torch.Tensor, idx: torch.Tensor,

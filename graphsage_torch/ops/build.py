@@ -43,6 +43,10 @@ _AGG_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# max backward: (dtype, device, embed, embed_stride, idx, mask, out, g,
+#                contrib, U, S, D, unit, lanes, kc, stream)
+_MAX_BWD_ARGS = _AGG_ARGS[:7] + [ctypes.c_void_p, ctypes.c_void_p] + \
+    _AGG_ARGS[7:]
 # scores: (dtype, device, emb, emb_stride, target_rows, out, B, U, H, eps,
 #          tb, tu, unit, hs, vec, stream)
 _SCORE_ARGS = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
@@ -71,6 +75,7 @@ _SIGNATURES = {
     "aggregate": {
         "gs_gather_mean": (_AGG_ARGS, ctypes.c_int),
         "gs_gather_max": (_AGG_ARGS, ctypes.c_int),
+        "gs_gather_max_bwd": (_MAX_BWD_ARGS, ctypes.c_int),
         "gs_error_string": _ERROR_STRING,
     },
     "sddmm": {

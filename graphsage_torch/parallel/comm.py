@@ -31,7 +31,10 @@ which GSPMD inserts for the JAX package and the port writes out:
   next layer's input gradient summed over the ranks that read it);
 - :func:`sum_partials`: the classifier's partial logits summed over the
   model group (SUM all-reduce); its backward is the identity, since every
-  rank's partial enters the sum once.
+  rank's partial enters the sum once;
+- :func:`sum_over_ranks`: the gradient shares of the replicated LSTM
+  cells summed over the model group (``train.optim``), where each rank's
+  slice of a layer contributes its own share.
 
 The two differentiable collectives are ``torch.autograd.Function``s with
 their backward written out (``torch.distributed.nn.functional``'s backward
@@ -169,20 +172,27 @@ def sum_partials(x: torch.Tensor, group=None) -> torch.Tensor:
     return _SumPartials.apply(x, group)
 
 
+def sum_over_ranks(tensors: list[torch.Tensor],
+                   group=None) -> list[torch.Tensor]:
+    """The elementwise SUM over ranks of each tensor (float32, one
+    all-reduce of their concatenation); the results are views of one
+    buffer."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].reshape(t.shape))
+        at += t.numel()
+    return out
+
+
 def mean_over_ranks(tensors: list[torch.Tensor],
                     group=None) -> list[torch.Tensor]:
     """The elementwise mean over ranks of each tensor (float32, one SUM
     all-reduce of their concatenation, divided by the world size): the
     gradients and the loss of one step in one collective."""
     world = dist.get_world_size(group)
-    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
-    flat /= world
-    out, at = [], 0
-    for t in tensors:
-        out.append(flat[at:at + t.numel()].reshape(t.shape))
-        at += t.numel()
-    return out
+    return [t.div_(world) for t in sum_over_ranks(tensors, group)]
 
 
 def all_gather_no_grad(x: torch.Tensor, group=None) -> torch.Tensor:

@@ -104,14 +104,10 @@ def make_dense_sup_step(mcfg: GraphSageConfig, fanout: int = 10,
     ``batch`` and ``labels`` the global batch (the same on every rank, its
     size a multiple of n_data), ``hop`` seeded alike on every rank; the
     loss returned is the mean over the data ranks, the global batch's
-    mean NLL.  LSTM is refused on a model axis of more than one rank (see
-    ``optim.apply_gradients_sharded``)."""
+    mean NLL.  The replicated LSTM cells' gradient shares are summed over
+    the model group (``optim.apply_gradients_sharded``)."""
     partial_sum = None
     if mesh is not None:
-        if mcfg.agg_func == "LSTM" and mesh.n_model > 1:
-            raise ValueError("LSTM cells are replicated over the model "
-                             "axis, and their gradients there are partial: "
-                             "LSTM runs on a mesh with n_model 1 only")
         partial_sum = functools.partial(comm.sum_partials,
                                         group=mesh.model_group)
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from graphsage_torch.parallel.comm import mean_over_ranks
+from graphsage_torch.parallel.comm import mean_over_ranks, sum_over_ranks
 from graphsage_torch.parallel.mesh import Mesh, map_with_paths, sharded_dim
 
 
@@ -68,19 +68,20 @@ def apply_gradients(params: dict, loss: torch.Tensor, models, lr: float,
 
 
 def apply_gradients_mean(params: dict, loss: torch.Tensor, lr: float,
-                         clip_norm: float, group=None,
-                         norms=None) -> torch.Tensor:
+                         clip_norm: float, group=None, norms=None,
+                         then=None) -> torch.Tensor:
     """The distributed steps' update (JAX's ``pmean`` of the loss inside the
     differentiated function): the local backward of this rank's ``loss``,
     the mean over ranks of the float32 gradients, then the per-model clip
     and SGD of :func:`apply_gradients` on the replicated params (``norms``
-    as there).  Returns the mean of the ranks' losses (a device scalar),
-    which the same all-reduce carries."""
+    as there; ``then`` maps the list of averaged gradients before the
+    clip).  Returns the mean of the ranks' losses (a device scalar), which
+    the same all-reduce carries."""
     out = {}
 
     def reduce(grads):
         *grads, out["loss"] = mean_over_ranks(grads + [loss.detach()], group)
-        return grads
+        return grads if then is None else then(grads)
 
     apply_gradients(params, loss, ("sage", "clf"), lr, clip_norm,
                     reduce=reduce, norms=norms)
@@ -96,15 +97,27 @@ def apply_gradients_sharded(params: dict, loss: torch.Tensor, lr: float,
     all-reduce for both models), each replicated leaf counted once.
     Returns the mean of the data ranks' losses (a device scalar).
 
-    A replicated leaf's gradient must be whole on every model rank, as the
-    classifier bias's is (it is taken after the partial logits are
-    summed).  Each rank's grads of a replicated SageLayer leaf (an LSTM
-    cell) would hold only its slice's share, so ``train.dense`` refuses
-    LSTM on a model axis."""
+    A replicated leaf's gradient must be whole on every model rank before
+    the clip.  The classifier bias's is (it is taken after the partial
+    logits are summed).  A replicated SageLayer leaf (an LSTM cell under
+    ``params["sage"]["agg"]``) feeds every model rank's slice of its
+    layer, so each rank's gradient holds its slice's share: those are
+    summed over the model group (one all-reduce of their concatenation,
+    after the mean over the data group), as GSPMD sums them for JAX."""
     models = ("sage", "clf")
     placed = {k: tree_leaves(map_with_paths(
         lambda path, leaf: sharded_dim(path, leaf) is not None, params[k],
         (k,))) for k in models}
+    # the gradients' order is apply_gradients': sage's leaves, then clf's
+    shares = [not s for s in placed["sage"]] + [False] * len(placed["clf"])
+
+    def sum_shares(grads):
+        picked = [g for g, share in zip(grads, shares) if share]
+        if not picked:
+            return grads
+        summed = iter(sum_over_ranks(picked, mesh.model_group))
+        return [next(summed) if share else g
+                for g, share in zip(grads, shares)]
 
     def norms(split):
         # the sharded leaves' squares first, summed over the model group,
@@ -121,7 +134,7 @@ def apply_gradients_sharded(params: dict, loss: torch.Tensor, lr: float,
             if not s)) for i, k in enumerate(models)}
 
     return apply_gradients_mean(params, loss, lr, clip_norm, mesh.data_group,
-                                norms=norms)
+                                norms=norms, then=sum_shares)
 
 
 @torch.no_grad()

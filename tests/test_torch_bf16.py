@@ -436,6 +436,13 @@ def test_bf16_scatter_equals_jax_on_the_hub_case(kind):
                      * is_max / denom)
         terms = terms.astype(jnp.bfloat16).reshape(-1, HUB["d"])
         rows = idx.reshape(-1)
+        if kind == "max":
+            # the plain tie split (the card's gather_max_bwd is held to it
+            # bit for bit) gives these terms
+            split = agg.max_tie_split_plain(g16, e16, i, m, out)
+            np.testing.assert_array_equal(
+                split.view(torch.int16).numpy(),
+                terms.view(np.int16))
     want = np.asarray(want).astype(np.float32)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), want)

@@ -97,11 +97,44 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
     g = e[:idx.shape[0], :8].bfloat16()
     assert torch.equal(scatter.scatter_rows(g, i[:, 0], len(e)),
                        scatter.scatter_rows_plain(g, i[:, 0], len(e)))
+    out = agg.max_aggregate(e, i, m)
+    gm = torch.ones_like(out)
+    assert torch.equal(agg.max_aggregate_backward(gm, e, i, m, out),
+                       torch.zeros_like(e).index_add_(
+                           0, i.reshape(-1).long(),
+                           agg.max_tie_split_plain(gm, e, i, m, out)))
     assert agg.LAUNCHES == before
     agg.reset_launches()
     assert agg.LAUNCHES == {"gather_mean": 0, "gather_max": 0,
-                            "pair_scores": 0, "gather_rows": 0,
-                            "scatter_rows": 0}
+                            "gather_max_bwd": 0, "pair_scores": 0,
+                            "gather_rows": 0, "scatter_rows": 0}
+
+
+def _bwd_args(**change):
+    args = dict(g=torch.zeros(4, 6), embed=torch.zeros(10, 6),
+                idx=torch.zeros(4, 3, dtype=torch.int32),
+                mask=torch.ones(4, 3), out=torch.zeros(4, 6))
+    args.update(change)
+    return args
+
+
+@pytest.mark.parametrize("args,error,match", [
+    (_bwd_args(g=torch.zeros(4, 6, dtype=torch.bfloat16)), TypeError,
+     "g must be torch.float32"),
+    (_bwd_args(out=torch.zeros(4, 5)), ValueError, "expected out"),
+    (_bwd_args(g=torch.zeros(6, 4).T), ValueError, "g must be contiguous"),
+    (_bwd_args(idx=torch.zeros(4, 3, dtype=torch.int64)), TypeError, "idx"),
+    (_bwd_args(), ValueError, "CUDA device"),
+], ids=["g-bf16", "out-shape", "g-transposed", "idx-int64", "cpu-tensors"])
+def test_gather_max_bwd_wrapper_refuses_what_the_kernel_does_not_take(
+        args, error, match):
+    """The tie-split kernel's wrapper raises before any launch: on g and
+    out (shape [U, D], the embed dtype, contiguous) and on what
+    _check_kernel_args refuses; a CPU tensor is never launched."""
+    before = dict(agg.LAUNCHES)
+    with pytest.raises(error, match=match):
+        agg.gather_max_bwd_kernel(**args)
+    assert agg.LAUNCHES == before
 
 
 def test_build_targets_hopper_into_the_build_directory():
@@ -272,22 +305,83 @@ def test_empty_batch_launches_nothing_on_card():
     assert agg.LAUNCHES == before
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", ["random", "empty_rows", "wide602",
-                                  "ties"])
-def test_gather_max_backward_on_card(case):
-    """max_aggregate's tie-splitting backward on the card (the gather_rows
-    kernel re-gathers the slot rows, index_add_ scatters) against autograd
-    through the plain version (amax over the gather), also through a
-    strided view; "ties" duplicates rows so that 2 and 3 slots tie, and
-    relu-like zeros tie everywhere."""
-    dev = _card()
-    name = "random" if case == "ties" else case
-    embed, idx, mask = _case(name, seed=4)
+def _max_bwd_case(case, seed=4):
+    """(embed, idx, mask, g) of the tie-split tests: "ties" duplicates rows
+    so that 2 and 3 slots tie (and relu zeros tie everywhere), "hub" sends
+    slots 0-6 of every row to row 0, "nonfinite" gives g +inf, -inf and
+    NaN (also on a row with every slot masked), "s33" has 33 slots (past
+    one 32-bit tie mask) with ties across the 32nd."""
+    if case == "hub":
+        embed, idx, mask = _hub_case(seed)
+    elif case == "s33":
+        rng = np.random.RandomState(seed)
+        embed = rng.randn(50, 128).astype(np.float32)
+        embed[25:] = embed[:25]
+        idx = rng.randint(0, 50, (21, 33)).astype(np.int32)
+        idx[:, 32] = idx[:, 0] + 25 - 50 * (idx[:, 0] >= 25)
+        mask = (rng.rand(21, 33) < 0.8).astype(np.float32)
+        mask[:, [0, 32]] = 1.0
+    else:
+        embed, idx, mask = _case("wide602" if case == "wide602" else
+                                 "empty_rows" if case == "empty_rows"
+                                 else "random", seed=seed)
     if case == "ties":
         embed[1::3] = embed[0::3][:len(embed[1::3])]
         embed[2::5] = embed[0]
         embed = np.maximum(embed, 0.0)
+    g = np.random.RandomState(5).randn(idx.shape[0], embed.shape[1]).astype(
+        np.float32)
+    if case == "nonfinite":
+        g[0, :3] = [np.inf, -np.inf, np.nan]
+        mask[1] = 0.0
+        g[1, :2] = [np.inf, np.nan]
+    return embed, idx, mask, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["ties", "random", "hub", "nonfinite", "s33",
+                                  "strided"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_max_bwd_matches_the_plain_tie_split_on_card(dtype, case):
+    """The gather_max_bwd kernel's contributions [U*S, D] equal
+    max_tie_split_plain's on CPU copies bit for bit (NaN for NaN), in one
+    launch; "strided" reads the embed through a view with rows 2D
+    apart."""
+    dev = _card()
+    embed, idx, mask, g = _max_bwd_case("random" if case == "strided"
+                                        else case)
+    e = torch.from_numpy(embed).to(dev, dtype)
+    if case == "strided":
+        e = torch.cat([e, e], dim=1)[:, embed.shape[1]:]
+        assert e.stride(0) == 2 * embed.shape[1]
+    i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
+    gd = torch.from_numpy(g).to(dev, dtype)
+    out = agg.max_aggregate(e, i, m)
+    before = dict(agg.LAUNCHES)
+    got = agg.gather_max_bwd_kernel(gd, e, i, m, out)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["gather_max_bwd"] == before["gather_max_bwd"] + 1
+    assert got.shape == (idx.size, embed.shape[1]) and got.dtype == dtype
+    want = agg.max_tie_split_plain(gd.cpu(), e.cpu(), i.cpu(), m.cpu(),
+                                   out.cpu())
+    assert _same_bits(got.cpu(), want)
+    assert _same_bits(got, agg.max_tie_split_plain(gd, e, i, m, out))
+    if case == "nonfinite":
+        assert torch.isnan(got.view(*idx.shape, -1)[1, :, 1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "empty_rows", "wide602", "ties",
+                                  "hub", "s33"])
+def test_gather_max_backward_on_card(case):
+    """max_aggregate's tie-splitting backward on the card (the
+    gather_max_bwd kernel, then index_add_) against autograd through the
+    plain version (amax over the gather), also through a strided view, and
+    against the float64 sum of the plain contributions within the rounding
+    bound of a float32 sum: an element of a row with n contributions within
+    (n + 1) 2^-24 sum|term|."""
+    dev = _card()
+    embed, idx, mask, _ = _max_bwd_case(case)
     i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
     g = torch.randn(idx.shape[0], embed.shape[1],
                     generator=torch.Generator().manual_seed(5)).to(dev)
@@ -299,11 +393,25 @@ def test_gather_max_backward_on_card(case):
         w = wide.clone().requires_grad_(True)
         (fn(w[:, d:], i, m) * g).sum().backward()
         grads.append(w.grad)
-    # the forward's gather_max and the backward's tie gather
+    # the forward's gather_max and the backward's tie split, no row gather
     assert agg.LAUNCHES["gather_max"] == before["gather_max"] + 1
-    assert agg.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
-    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    assert agg.LAUNCHES["gather_max_bwd"] == before["gather_max_bwd"] + 1
+    assert agg.LAUNCHES["gather_rows"] == before["gather_rows"]
+    if case != "hub":
+        torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
     assert not grads[0][:, :d].any()
+    e = wide[:, d:].cpu()
+    terms = agg.max_tie_split_plain(g.cpu(), e, i.cpu(), m.cpu(),
+                                    agg.max_aggregate_plain(e, i.cpu(),
+                                                            m.cpu()))
+    flat = i.cpu().reshape(-1).long()
+    exact = torch.zeros(e.shape, dtype=torch.float64).index_add_(
+        0, flat, terms.double())
+    absum = torch.zeros_like(exact).index_add_(0, flat, terms.double().abs())
+    n = torch.bincount(flat, minlength=e.shape[0]).double()[:, None]
+    for grad in grads:
+        assert ((grad[:, d:].double().cpu() - exact).abs()
+                <= (n + 1) * 2.0**-24 * absum).all()
 
 
 @pytest.mark.gpu
@@ -919,12 +1027,12 @@ def _scatter_rows_case(name, seed=0):
 def _same_bits(got, want):
     """Bit for bit, except that any NaN matches any NaN: the NaN a bfloat16
     add returns is the device's (a float32 NaN rounded on the CPU, the
-    card's canonical NaN)."""
+    card's canonical NaN), as is the NaN of inf * 0."""
     nan = torch.isnan(got)
+    ints = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
     return (got.dtype == want.dtype and got.shape == want.shape
             and torch.equal(nan, torch.isnan(want))
-            and torch.equal(got.view(torch.int16)[~nan],
-                            want.view(torch.int16)[~nan]))
+            and torch.equal(got.view(ints)[~nan], want.view(ints)[~nan]))
 
 
 @pytest.mark.parametrize("case", CPU_SCATTER_CASES)
@@ -1280,17 +1388,12 @@ def test_gather_mean_backward_bf16_on_card(case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["ties", "random", "hub"])
+@pytest.mark.parametrize("case", ["ties", "random", "hub", "s33"])
 def test_gather_max_backward_bf16_on_card(case):
-    """"ties" duplicates rows so that 2 and 3 slots tie (and relu zeros
-    tie everywhere)."""
+    """The whole bfloat16 backward (gather_max_bwd, then scatter_rows)
+    equals the CPU composition bit for bit; cases of _max_bwd_case."""
     dev = _card()
-    embed, idx, mask = _scatter_case("random" if case == "ties" else case,
-                                     seed=4)
-    if case == "ties":
-        embed[1::3] = embed[0::3][:len(embed[1::3])]
-        embed[2::5] = embed[0]
-        embed = np.maximum(embed, 0.0)
+    embed, idx, mask, _ = _max_bwd_case(case)
     e = torch.from_numpy(embed).to(dev, torch.bfloat16)
     i, m = torch.from_numpy(idx).to(dev), torch.from_numpy(mask).to(dev)
     g = torch.randn(idx.shape[0], embed.shape[1],
@@ -1298,7 +1401,8 @@ def test_gather_max_backward_bf16_on_card(case):
                         dev, torch.bfloat16)
     before = dict(agg.LAUNCHES)
     grad = _card_and_cpu(agg.max_aggregate, e, (i, m), g)
-    assert agg.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    assert agg.LAUNCHES["gather_max_bwd"] == before["gather_max_bwd"] + 1
+    assert agg.LAUNCHES["gather_rows"] == before["gather_rows"]
     n = _report(f"gather_max bf16 backward {case}", grad, i,
                 _max_terms(g, e, i, m), e.shape[0])
     assert case != "hub" or n >= 1000

@@ -22,13 +22,15 @@ draws of the global batch replayed on every rank.
   add in another order).  Variants: MEAN with the clip inactive (lr 0.7,
   clip 5), MEAN with the clip active (lr 0.5, clip 0.05; a clip taken on
   the local slices' norm alone would pass at n_model 1 and fail at 2),
-  MAX gcn with the clip active (the x0-gather branch).
+  MAX gcn with the clip active (the x0-gather branch), LSTM with the clip
+  active (its cells are replicated over ``model`` and each model rank's
+  gradient holds its slice's share: summed over the model group before
+  the clip, their squares enter the norm once).
 - The same step against the port's own single-device step on the whole
   batch, within the same bars.
 - ``dryrun_multichip(2)`` and ``(4)`` pass their asserts over gloo.
 - The checks that refuse a layout: ValueError for a hidden size or a batch
-  that does not divide, for a mesh that does not fit the group, and for
-  LSTM on a model axis.
+  that does not divide, and for a mesh that does not fit the group.
 """
 
 import os
@@ -62,7 +64,8 @@ MESHES = {"2x1": (2, 1), "1x2": (1, 2), "2x2": (2, 2)}
 # name: (agg_func, gcn, lr, clip)
 VARIANTS = {"clip_off": ("MEAN", False, 0.7, 5.0),
             "clip_on": ("MEAN", False, 0.5, 0.05),
-            "max_gcn": ("MAX", True, 0.7, 0.05)}
+            "max_gcn": ("MAX", True, 0.7, 0.05),
+            "lstm": ("LSTM", False, 0.7, 0.05)}
 CASES = [(m, v) for m in MESHES for v in VARIANTS]
 IDS = [f"{m}-{v}" for m, v in CASES]
 
@@ -311,14 +314,6 @@ def test_sharded_step_refuses_an_indivisible_batch():
     with pytest.raises(ValueError, match="do not divide over 3 data ranks"):
         step(shard_params(_leaf_params(params, CPU), mesh), _t(feats), hop,
              _t(batch), _t(labels))
-
-
-def test_sharded_step_refuses_lstm_on_a_model_axis():
-    cfg = GraphSageConfig(num_layers=2, input_size=64, out_size=32,
-                          agg_func="LSTM")
-    with pytest.raises(ValueError, match="n_model 1 only"):
-        dense.make_dense_sup_step(cfg, mesh=_fake_mesh(1, 2))
-    dense.make_dense_sup_step(cfg, mesh=_fake_mesh(2, 1))
 
 
 def test_entry_module_runs_the_dry_run_at_world_1():

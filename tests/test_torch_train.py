@@ -185,33 +185,137 @@ def _tie_case():
     return embed, idx, mask
 
 
-@pytest.mark.parametrize("case", ["ties", "random", "empty_rows"])
+def _max_bwd_case(case):
+    """(embed, idx, mask, g) of a max-backward case: the tie case, _case's
+    random and empty_rows, and the edges of the tie split: g holding +inf,
+    -inf and NaN (inf * 0 is NaN on every slot of that column, masked ones
+    too), ties between +0 and -0 (== has them tie) with negative g (the
+    untied slots' shares are -0), every slot of some rows masked, and 33
+    slots (past one 32-bit mask of the card's kernel)."""
+    rng = np.random.RandomState(10)
+    if case in ("ties", "nonfinite"):
+        embed, idx, mask = _tie_case()
+    elif case == "signed_zeros":
+        embed = rng.randn(7, 5).astype(np.float32)
+        embed[0] = [0.0, -0.0, 0.0, -1.0, 2.0]
+        embed[1] = [-0.0, 0.0, -0.0, -1.0, 2.0]
+        embed[2] = [-3.0, -0.0, -2.0, -5.0, 2.0]
+        idx = np.array([[0, 1, 2, 5], [1, 2, 0, 1], [2, 2, 6, 0]], np.int32)
+        mask = np.array([[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 0, 1]],
+                        np.float32)
+    elif case == "s33":
+        embed = rng.randn(40, 6).astype(np.float32)
+        embed[20:] = embed[:20]
+        embed[::7, 0] = 9.0
+        idx = rng.randint(0, 40, (5, 33)).astype(np.int32)
+        idx[:, 32] = 0                     # the 33rd slot ties at column 0
+        mask = (rng.rand(5, 33) < 0.8).astype(np.float32)
+        mask[:, 32] = 1.0
+    else:
+        embed, idx, mask = _case("empty_rows" if case == "all_masked"
+                                 else case, seed=7)
+    g = rng.randn(idx.shape[0], embed.shape[1]).astype(np.float32)
+    if case == "nonfinite":
+        g[0, :3] = [np.inf, -np.inf, np.nan]
+        g[3, 2] = np.nan
+        g[2, 0] = np.inf                   # a row with every slot masked
+    elif case == "signed_zeros":
+        g = -np.abs(g)
+    elif case == "all_masked":
+        mask[1::3] = 0.0
+        g = -np.abs(g)
+    return embed, idx, mask, g
+
+
+def _assert_same(got: np.ndarray, want: np.ndarray):
+    """Equal values, NaN where the other has NaN, and the same sign of
+    every zero: bit for bit but for the payload and sign of a NaN."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    nan = np.isnan(got.astype(np.float32))
+    np.testing.assert_array_equal(nan, np.isnan(want.astype(np.float32)))
+    np.testing.assert_array_equal(np.signbit(got[~nan].astype(np.float32)),
+                                  np.signbit(want[~nan].astype(np.float32)))
+    np.testing.assert_array_equal(got[~nan], want[~nan])
+
+
+def _jax_tie_split(je, ji, jm, jout, jg):
+    """_pallas_max_bwd's lines up to its scatter, in jnp: [U*S, D]."""
+    gathered = jnp.take(je, ji, axis=0)
+    is_max = ((gathered == jout[:, None, :])
+              & (jm[:, :, None] > 0)).astype(jg.dtype)
+    denom = jnp.maximum(jnp.sum(is_max, axis=1, keepdims=True), 1.0)
+    contrib = jg[:, None, :] * is_max / denom
+    return contrib.reshape(-1, je.shape[1]).astype(je.dtype)
+
+
+MAX_BWD_CASES = ["ties", "random", "empty_rows", "nonfinite", "signed_zeros",
+                 "all_masked", "s33"]
+
+
+@pytest.mark.parametrize("case", MAX_BWD_CASES)
 def test_gather_max_backward_matches_jax(case):
     """The gather-max Function's gradient against jax.grad of the XLA
     max_aggregate and against _pallas_max_bwd, at 2- and 3-way ties (with a
     masked slot that ties); autograd through the plain version gives the
-    same equal split."""
-    if case == "ties":
-        embed, idx, mask = _tie_case()
-    else:
-        embed, idx, mask = _case(case, seed=7)
-    g = np.random.RandomState(9).randn(idx.shape[0],
-                                       embed.shape[1]).astype(np.float32)
+    same equal split.  Every case also holds the Function's gradient
+    against _pallas_max_bwd's in float32 and bfloat16 (equal, NaN for NaN),
+    and max_tie_split_plain's contributions against the same lines of
+    _pallas_max_bwd in jnp bit for bit; where g is not finite, jax.grad
+    and autograd through amax route it otherwise (no inf * 0 on the
+    untied slots), so only those two comparisons hold there."""
+    embed, idx, mask, g = _max_bwd_case(case)
     ja = tuple(map(jnp.asarray, (embed, idx, mask)))
     out = jax_agg.max_aggregate(*ja)
-    want = jax.grad(lambda e: jnp.sum(jax_agg.max_aggregate(e, *ja[1:])
-                                      * g))(ja[0])
     want_pallas, _, _ = _pallas_max_bwd(True, "max", (*ja, out),
                                         jnp.asarray(g))
-    np.testing.assert_allclose(np.asarray(want_pallas), np.asarray(want),
-                               rtol=1e-6, atol=1e-6)
-    for fn in (agg.max_aggregate, agg.max_aggregate_plain):
-        e = torch.from_numpy(embed).requires_grad_(True)
-        got = fn(e, torch.from_numpy(idx), torch.from_numpy(mask))
-        np.testing.assert_array_equal(got.detach().numpy(), np.asarray(out))
-        (got * torch.from_numpy(g)).sum().backward()
-        np.testing.assert_allclose(e.grad.numpy(), np.asarray(want),
+    if case != "nonfinite":
+        want = jax.grad(lambda e: jnp.sum(jax_agg.max_aggregate(e, *ja[1:])
+                                          * g))(ja[0])
+        np.testing.assert_allclose(np.asarray(want_pallas), np.asarray(want),
                                    rtol=1e-6, atol=1e-6)
+        for fn in (agg.max_aggregate, agg.max_aggregate_plain):
+            e = torch.from_numpy(embed).requires_grad_(True)
+            got = fn(e, torch.from_numpy(idx), torch.from_numpy(mask))
+            np.testing.assert_array_equal(got.detach().numpy(),
+                                          np.asarray(out))
+            (got * torch.from_numpy(g)).sum().backward()
+            np.testing.assert_allclose(e.grad.numpy(), np.asarray(want),
+                                       rtol=1e-6, atol=1e-6)
+    i, m = torch.from_numpy(idx), torch.from_numpy(mask)
+    for tdt, jdt in ((torch.float32, jnp.float32),
+                     (torch.bfloat16, jnp.bfloat16)):
+        e = torch.from_numpy(embed).to(tdt)
+        gt = torch.from_numpy(g).to(tdt)
+        t_out = agg.max_aggregate(e, i, m)
+        je, jg = jnp.asarray(embed, dtype=jdt), jnp.asarray(g, dtype=jdt)
+        jout = jnp.asarray(t_out.float().numpy(), dtype=jdt)
+        contrib = agg.max_tie_split_plain(gt, e, i, m, t_out)
+        assert contrib.shape == (idx.size, embed.shape[1])
+        _assert_same(contrib.float().numpy(), np.asarray(
+            _jax_tie_split(je, ja[1], ja[2], jout, jg)).astype(np.float32))
+        leaf = e.clone().requires_grad_(True)
+        agg.max_aggregate(leaf, i, m).backward(gt)
+        want_t, _, _ = _pallas_max_bwd(True, "max", (je, ja[1], ja[2], jout),
+                                       jg)
+        assert leaf.grad.dtype == tdt
+        _assert_same(leaf.grad.float().numpy(),
+                     np.asarray(want_t).astype(np.float32))
+    if case == "nonfinite":
+        # inf * 0: NaN on every untied slot of those columns, masked slots
+        # too (the tied ones take +-inf / c, or NaN)
+        rows = contrib.float().view(idx.shape[0], idx.shape[1], -1)
+        assert not torch.isfinite(rows[0, :, :3]).any()
+        assert torch.isnan(rows[0, 3:, :3]).all()     # masked slots
+        assert torch.isnan(rows[2, :, 0]).all() and not mask[2].any()
+        assert not torch.isnan(rows[1]).any()
+    if case == "signed_zeros":
+        # +0 and -0 tie; an untied slot's share of a negative g is -0
+        # (contrib is the bfloat16 loop's)
+        rows = contrib.float().view(idx.shape[0], idx.shape[1], -1)
+        half = float(torch.tensor(g[0, 0] / 2).bfloat16())
+        assert float(rows[0, 0, 0]) == float(rows[0, 1, 0]) == half < 0
+        assert rows[0, 2, 0] == 0 and torch.signbit(rows[0, 2, 0])
     if case == "ties":
         # row 0 alone: the 3-way and 2-way ties split equally, and the
         # masked slot that ties (embed row 3) gets nothing
