@@ -263,6 +263,20 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
        versions as the other rows are (launches 0: world 1 launches the
        128-wide shapes);
    (u) entry.dryrun_multichip(1): the four parallel programs' asserts.
+13. The benchmark suites' row functions, in this process, on the same
+   graph (graphsage_torch.bench and .infer_bench, the ports of bench.py and
+   tools/infer_bench.py): the training rows powerlaw100k_b65536_cached_
+   bfloat16 (the headline), powerlaw100k_b32768_cached_bfloat16_unsup and
+   powerlaw100k_b32768_cached_float32 (bench.run_spec: a warm epoch, then
+   three timed epochs, the refresh inside each), and the serving row
+   powerlaw100k_cap32_bf16_max (infer_bench.serve_row).  Each row printed;
+   its time finite and its launches (counted over one timed epoch, or one
+   embed-all) equal to those predicted from the code (bench_launches,
+   serving_launches); the serving row's embeddings finite; the headline's
+   step_ms beside (e)'s ms_per_step and epoch time.  Kernel row:
+   gather_rows at the float32 row's full-table gather (360,448 ids of its
+   first batch's frontier over a [100000, 128] float32 table), with that
+   row's launch count.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -301,7 +315,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graphsage_torch import cli, infer, microbench
+from graphsage_torch import bench, cli, infer, infer_bench, microbench
 from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
@@ -3716,6 +3730,88 @@ def tp_phase(ds, dev: torch.device, phase_mark) -> list:
     return rows
 
 
+# ------------------------------------------------------------ bench rows
+
+BENCH_ROWS = (bench.HEADLINE_ROW, "powerlaw100k_b32768_cached_bfloat16_unsup",
+              "powerlaw100k_b32768_cached_float32")
+SERVE_ROW = "powerlaw100k_cap32_bf16_max"
+
+
+def bench_launches(spec: dict) -> dict:
+    """One timed epoch of a cached bench row, from the code's rule: the
+    refresh's gather_mean (gather_max for MAX); a step's gather_rows, one
+    on the full-table branch (cached.layer1_full_table) and two per
+    occurrence; in bfloat16 one scatter_rows a step on the full-table
+    branch; and for the unsup row one pair_scores a step only where
+    sddmm.dense_block_pays takes the score block."""
+    steps, b = spec.get("steps", 20), spec["batch"]
+    full = cached.layer1_full_table(NODES, FEATS, b * (FANOUT + 1), HIDDEN)
+    agg_func = spec.get("agg", "MEAN")
+    block = spec["kind"] == "unsup" and sddmm.dense_block_pays(
+        4096, b, 4096 * (6 + 20), HIDDEN)
+    return launch_counts(
+        gather_mean=int(agg_func != "MAX"), gather_max=int(agg_func == "MAX"),
+        gather_rows=steps * (1 if full else 2),
+        scatter_rows=steps * int(full and spec["dtype"] == "bfloat16"),
+        pair_scores=steps * int(block))
+
+
+def bench_phase(ds, e_summary: dict, dev: torch.device) -> list:
+    """Phase 13: the bench suites' rows in this process; returns the
+    kernel row of the float32 row's gather."""
+    pad = ds.graph.to_padded_sampled(WIDTH, np.random.RandomState(99))
+    specs = {s["name"]: s for s in bench._row_specs()}
+    done = {}
+    for name in BENCH_ROWS:
+        t0 = time.perf_counter()
+        row = done[name] = bench.run_spec(specs[name], ds, pad, dev)
+        want = bench_launches(specs[name])
+        log(f"[bench] {json.dumps(row)} ({time.perf_counter() - t0:.3f} s "
+            f"with its setup); launches predicted from the code {want}")
+        assert np.isfinite(row["step_ms"]) and row["step_ms"] > 0, row
+        assert row["launches"] == want, (name, row["launches"], want)
+    head = done[bench.HEADLINE_ROW]
+    log(f"[bench] headline step_ms {head['step_ms']:.6f} (epoch timing, "
+        f"refresh inside, median of {bench.TIMED_REPS}) beside (e) "
+        f"ms_per_step {e_summary['ms_per_step']:.6f} (a step between two "
+        f"synchronisations) and (e) epoch {e_summary['epoch_ms']:.6f} ms / "
+        f"{e_summary['steps']} steps = "
+        f"{e_summary['epoch_ms'] / e_summary['steps']:.6f}")
+
+    spec = next(s for s in infer_bench._row_specs() if s["name"] == SERVE_ROW)
+    t0 = time.perf_counter()
+    row, emb = infer_bench.serve_row(
+        SERVE_ROW, ds, infer_bench.padded(ds, spec["width"]), spec["dtype"],
+        spec["agg"], spec["note"], dev)
+    cfg = GraphSageConfig(num_layers=2, input_size=FEATS, out_size=HIDDEN,
+                          agg_func=spec["agg"], compute_dtype=spec["dtype"])
+    want = serving_launches(cfg, lstm_hybrid=False)
+    log(f"[bench] {json.dumps(row)} ({time.perf_counter() - t0:.3f} s); "
+        f"launches predicted from the code {want}")
+    assert np.isfinite(row["embed_all_ms"]) and row["embed_all_ms"] > 0, row
+    assert row["launches"] == want, (row["launches"], want)
+    assert emb.shape == (NODES, HIDDEN) and np.isfinite(emb).all()
+
+    # the float32 row's full-table gather: its first batch's frontier
+    name = "powerlaw100k_b32768_cached_float32"
+    f32 = specs[name]
+    batch = np.random.RandomState(0).randint(0, NODES, (f32["steps"],
+                                                        f32["batch"]))[0]
+    hop = HopSampler(torch.from_numpy(pad.neighbors).to(dev),
+                     torch.from_numpy(pad.degrees).to(dev),
+                     torch.Generator(device=dev).manual_seed(SEED))
+    ids, _ = cached.sample_cached_frontiers(
+        hop, torch.from_numpy(batch.astype(np.int32)).to(dev),
+        GraphSageConfig(num_layers=2), FANOUT)
+    table = torch.randn(NODES, HIDDEN, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED))
+    kernel = gather_row(f"bench {name} full table, {ids.shape[0]} ids over "
+                        f"{list(table.shape)}", table, ids,
+                        done[name]["launches"]["gather_rows"])
+    return [kernel]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3849,6 +3945,9 @@ def run(dev: torch.device) -> int:
 
     rows.extend(tp_phase(ds, dev, phase_done))
     phase_done("phase 12 (tensor parallel)")
+
+    rows.extend(bench_phase(ds, bf16_runs["e"]["summary"], dev))
+    phase_done("phase 13 (bench rows)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

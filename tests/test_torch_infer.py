@@ -378,7 +378,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.train.cached_dist, "
         "graphsage_torch.train.cached_dist_trainer, "
         "graphsage_torch.train.distributed, "
-        "graphsage_torch.train.dist_trainer\n"
+        "graphsage_torch.train.dist_trainer, graphsage_torch.bench, "
+        "graphsage_torch.infer_bench\n"
         "import chip_smoke, tests.torch_dist_worker\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n")
