@@ -277,6 +277,40 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    gather_rows at the float32 row's full-table gather (360,448 ids of its
    first batch's frontier over a [100000, 128] float32 table), with that
    row's launch count.
+14. BASELINE.json's config 5 on the card, through the ports of the JAX
+   system's four 1M-node tools, in this process: the graph
+   (graphsage_torch.bigscale_bench.load_1m: 1,000,000 nodes, 10,000,000
+   edges, 602 features, the width-32 table) generated once and timed, the
+   [1000000, 602] bfloat16 feature table drawn on the card; hidden 128,
+   fanout 10, the bench's seeds and batches:
+   - bigscale_bench's rows 65536 (T 8) and 131072 (T 4), the direct
+     refresh_every=4 cycle at 131072 (its k 8 runs in the module only, for
+     time) and unsup at 32768 (T 16): each row's launches of a timed epoch
+     equal to those the code predicts (big_launches: the layer-1 rule
+     picks the full table at all three batches, so a step is one
+     gather_rows and one scatter_rows, a refresh one gather_mean);
+   - profile_bigscale (B 65536, 20 steps: the refresh, the steps alone,
+     forward only, the first layer's gradient stopped, the device's busy
+     time by kernel over a step-only epoch), its launches predicted;
+   - refresh_locality (the refresh under the raw and the BFS labeling);
+   - infer_bench's powerlaw1M_cap16_bf16 serving row, its launches
+     predicted;
+   - train_1m_e2e with 2 epochs instead of 6 (a cut of scale only: epoch 1
+     still reuses epoch 0's cache under refresh_every=4; the graph, the 64
+     features, the batch of 65536 and the evaluation of every val and test
+     node are not cut), on a second, 64-wide generation (timed), then
+     the module's idle probe (one more train epoch, traced): its launches
+     equal to trainer_launches' prediction (per occurrence at D 64: two
+     gather_rows a step, no scatter), its losses finite and falling, its
+     val F1 printed.
+   Held against the plain versions on the main path's own inputs: the
+   first refresh, in blocks of 50,000 rows (its plain [U, S, D] gather
+   would not fit whole); each recorded full-table gather_rows (equal to
+   index_select) and the scatter_rows of its recorded gradient (equal to
+   the plain version on the card and on the CPU), whole.  Kernel rows:
+   gather_mean at both refreshes and at the serving row's layers (plain_ms
+   the sum of its blocks), gather_rows and scatter_rows at the three
+   full-table shapes, gather_rows at train_1m_e2e's per-occurrence gather.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -315,7 +349,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graphsage_torch import bench, cli, infer, infer_bench, microbench
+from graphsage_torch import (bench, bigscale_bench, cli, infer, infer_bench,
+                             microbench, profile_bigscale, refresh_locality,
+                             train_1m_e2e)
 from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
@@ -511,14 +547,23 @@ def small_graph_check(dev: torch.device) -> None:
 
 def kernel_row(name: str, label: str, embed: torch.Tensor,
                idx: torch.Tensor, mask: torch.Tensor,
-               launches: int) -> dict:
+               launches: int, block: int | None = None) -> dict:
+    """The kernel against its plain version, and its row.  With ``block``
+    the plain version runs on blocks of that many rows of idx (its
+    [U, S, D] gather would not fit whole): the check goes block by block
+    and ``plain_ms`` is the sum of the blocks' times."""
     kernel = agg.mean_aggregate if name == "gather_mean" else agg.max_aggregate
     plain = (agg.mean_aggregate_plain if name == "gather_mean"
              else agg.max_aggregate_plain)
     got = kernel(embed, idx, mask)
     torch.cuda.synchronize()
-    err = check_close(f"{name} {label}", got, plain(embed, idx, mask),
-                      exact=name == "gather_max")
+    u = idx.shape[0]
+    blocks = [(lo, min(lo + (block or u), u))
+              for lo in range(0, u, block or u)]
+    err = max(check_close(f"{name} {label} rows {lo}:{hi}", got[lo:hi],
+                          plain(embed, idx[lo:hi], mask[lo:hi]),
+                          exact=name == "gather_max")
+              for lo, hi in blocks)
 
     valid = mask > 0
     u, s = idx.shape
@@ -553,15 +598,23 @@ def kernel_row(name: str, label: str, embed: torch.Tensor,
         "max_abs_err": err,
         **times(lambda: kernel(embed, idx, mask), "gather_reduce_kernel",
                 library=library, reps=20),
-        "plain_ms": cuda_ms(lambda: plain(embed, idx, mask), reps=5),
+        "plain_ms": (cuda_ms(lambda: plain(embed, idx, mask), reps=5)
+                     if block is None else
+                     sum(cuda_ms(lambda: plain(embed, idx[lo:hi],
+                                               mask[lo:hi]), reps=1,
+                                 warmup=1) for lo, hi in blocks)),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
+    if block is not None:
+        row["plain_blocks"] = len(blocks)
     log(f"kernel {row['name']}: embed {tuple(embed.shape)} stride "
         f"{embed.stride(0)} {embed.dtype}, idx {tuple(idx.shape)}, "
         f"{n_valid} valid slots, {rows_read} rows read, {nbytes} bytes; "
-        f"{timing_note(row)} [{library_note}, max abs diff to the kernel "
-        f"{library_err}] max_abs_err {err}")
+        f"{timing_note(row)}"
+        f"{'' if block is None else f' (plain in {len(blocks)} blocks)'} "
+        f"[{library_note}, max abs diff to the kernel {library_err}] "
+        f"max_abs_err {err}")
     return row
 
 
@@ -3738,22 +3791,15 @@ SERVE_ROW = "powerlaw100k_cap32_bf16_max"
 
 
 def bench_launches(spec: dict) -> dict:
-    """One timed epoch of a cached bench row, from the code's rule: the
-    refresh's gather_mean (gather_max for MAX); a step's gather_rows, one
-    on the full-table branch (cached.layer1_full_table) and two per
-    occurrence; in bfloat16 one scatter_rows a step on the full-table
-    branch; and for the unsup row one pair_scores a step only where
-    sddmm.dense_block_pays takes the score block."""
-    steps, b = spec.get("steps", 20), spec["batch"]
-    full = cached.layer1_full_table(NODES, FEATS, b * (FANOUT + 1), HIDDEN)
-    agg_func = spec.get("agg", "MEAN")
-    block = spec["kind"] == "unsup" and sddmm.dense_block_pays(
-        4096, b, 4096 * (6 + 20), HIDDEN)
-    return launch_counts(
-        gather_mean=int(agg_func != "MAX"), gather_max=int(agg_func == "MAX"),
-        gather_rows=steps * (1 if full else 2),
-        scatter_rows=steps * int(full and spec["dtype"] == "bfloat16"),
-        pair_scores=steps * int(block))
+    """One timed epoch of a cached bench row, from the code's rule
+    (big_launches; float32 gradients take index_add_, not scatter_rows,
+    and a MAX row's refresh is a gather_max)."""
+    want = big_launches(NODES, FEATS, spec["batch"], spec.get("steps", 20),
+                        unsup=spec["kind"] == "unsup",
+                        backward=spec["dtype"] == "bfloat16")
+    if spec.get("agg") == "MAX":
+        want["gather_max"], want["gather_mean"] = want["gather_mean"], 0
+    return want
 
 
 def bench_phase(ds, e_summary: dict, dev: torch.device) -> list:
@@ -3810,6 +3856,263 @@ def bench_phase(ds, e_summary: dict, dev: torch.device) -> list:
                         f"{list(table.shape)}", table, ids,
                         done[name]["launches"]["gather_rows"])
     return [kernel]
+
+
+# ------------------------------------------------------------ config 5
+
+# phase 14: BASELINE.json's config 5 (graphsage_torch.bigscale_bench's
+# graph); the refresh's plain version runs in blocks of BIG_BLOCK rows
+BIG_BLOCK = 50_000
+BIG_SERVE_ROW = "powerlaw1M_cap16_bf16"
+BIG_EPOCHS = 2
+
+
+@contextlib.contextmanager
+def first_calls(module, name: str, keep: dict, key_of, grad: bool = False):
+    """``module.<name>`` keeping, for each key ``key_of(*args)`` that is
+    not None, the arguments and output of its first call (with ``grad``,
+    also the gradient that reaches that output)."""
+    fn = getattr(module, name)
+
+    def first(*args):
+        out = fn(*args)
+        key = key_of(*args)
+        if key is not None and key not in keep:
+            rec = keep[key] = {
+                "args": tuple(a.detach() if isinstance(a, torch.Tensor)
+                              else a for a in args),
+                "out": out.detach()}
+            if grad and out.requires_grad:
+                out.register_hook(
+                    lambda g: rec.setdefault("g", g.detach()))
+        return out
+
+    with patched(module, **{name: first}):
+        yield
+
+
+def big_launches(n: int, d: int, batch: int, steps: int, refreshes: int = 1,
+                 epochs: int = 1, unsup: bool = False,
+                 backward: bool = True) -> dict:
+    """The launches of ``refreshes`` refreshes and ``epochs`` epochs of
+    ``steps`` bfloat16 steps at ``batch`` over [n, d] tables, from the
+    code's rules: a refresh's gather_mean; a step's gather_rows, one on the
+    full-table branch (cached.layer1_full_table) and two per occurrence;
+    with ``backward``, one scatter_rows a step on the full-table branch;
+    for unsup one pair_scores a step where sddmm.dense_block_pays takes
+    the score block of the bench's 4,096 targets x (6 + 20) pairs."""
+    full = cached.layer1_full_table(n, d, batch * (FANOUT + 1), HIDDEN)
+    block = unsup and sddmm.dense_block_pays(4096, batch, 4096 * (6 + 20),
+                                             HIDDEN)
+    t = epochs * steps
+    return launch_counts(gather_mean=refreshes,
+                         gather_rows=t * (1 if full else 2),
+                         scatter_rows=t * int(full and backward),
+                         pair_scores=t * int(block))
+
+
+def trainer_launches(tr: CachedTrainer, epochs: int) -> dict:
+    """What the counted CachedTrainer run launches: a refresh on epochs
+    0, k, 2k, ..., and one per evaluation embedding (val, and test where
+    val F1 improved), each with the layer-1 gathers at m1 = bucket(nodes)
+    x (K + 1); T steps an epoch; bfloat16 (scatter_rows a step on the
+    full-table branch)."""
+    n, d = tr.ds.num_nodes, tr.ds.feature_dim
+    steps = -(-len(tr.ds.train_nodes) // tr.tcfg.b_sz)
+    refreshes = sum(1 for ep in range(epochs)
+                    if ep % tr.tcfg.refresh_every == 0)
+    want = big_launches(n, d, tr.tcfg.b_sz, steps, refreshes, epochs)
+    for entry in tr.history:
+        for nodes, key in ((tr.ds.val_nodes, "val_f1"),
+                           (tr.ds.test_nodes, "test_f1")):
+            if key in entry:
+                evals = big_launches(n, d, _bucket(len(nodes)), 1,
+                                     backward=False)
+                for name, count in evals.items():
+                    want[name] += count
+    return want
+
+
+def big_gather_rows(recs: dict, rows_from: dict) -> list:
+    """gather_rows and scatter_rows kernel rows at each 1M-row shape that a
+    counted run recorded (``rows_from``: key -> (label, launches))."""
+    rows = []
+    for key, (label, launches) in rows_from.items():
+        rec = recs[key]
+        table, idx = rec["args"]
+        rows.append(gather_row(label, table, idx, launches))
+        if "g" in rec:
+            rows.append(scatter_row(label + " backward", rec["g"], idx,
+                                    table.shape[0], launches))
+    return rows
+
+
+def config5_phase(dev: torch.device, phase_mark) -> list:
+    """Phase 14: config 5 through the four modules, in this process."""
+    torch.cuda.empty_cache()
+    n, e, d = bigscale_bench.NODES, bigscale_bench.EDGES, bigscale_bench.FEATS
+    for b in (*bigscale_bench.SUP_BATCHES, bigscale_bench.UNSUP_BATCH):
+        full = cached.layer1_full_table(n, d, b * (FANOUT + 1), HIDDEN)
+        log(f"[config5] layer-1 branch at D {d}, B {b}, m1 "
+            f"{b * (FANOUT + 1)}: "
+            f"{'full table' if full else 'per occurrence'}")
+        assert full
+    ds, pad, gen_s = bigscale_bench.load_1m(n, e)
+    log(f"[config5] graph: {n} nodes, {int(pad.true_degrees.sum())} edge "
+        f"slots, table [{pad.num_nodes}, {pad.width}], generated in "
+        f"{gen_s:.3f} s (host)")
+    feats = bigscale_bench.device_feats(n, d, dev)
+    train_split = n // 2
+    refreshes, gathers, serving = {}, {}, {}
+
+    def big_key(*args):
+        return (tuple(args[0].shape), args[1].shape[0]) if (
+            args[0].shape[0] == n) else None
+
+    # -------- bigscale_bench: 65536, 131072, direct at k 4, unsup
+    t0 = time.perf_counter()
+    with first_calls(cached, "mean_aggregate", refreshes, big_key), \
+            first_calls(cached, "gather_rows", gathers, big_key, grad=True), \
+            patched(bigscale_bench, DIRECT_KS=(4,)):
+        record = bigscale_bench.run(
+            ds, pad, feats, {*map(str, bigscale_bench.SUP_BATCHES), "direct",
+                             "unsup"}, dev, gen_s, log=log)
+    log(f"[config5] bigscale_bench rows in {time.perf_counter() - t0:.3f} s")
+    rows_by = {r["name"]: r for r in record["rows"]}
+    for b in bigscale_bench.SUP_BATCHES:
+        row = rows_by[f"powerlaw1M_b{b}_cached_bfloat16"]
+        t = row["honest_T"]
+        assert t == -(-train_split // b), (b, t)
+        assert np.isfinite(row["step_ms"]) and row["step_ms"] > 0, row
+        assert row["launches"] == big_launches(n, d, b, t), row
+        assert row["steponly_launches"] == big_launches(n, d, b, t, 0), row
+    b = bigscale_bench.DIRECT_BATCH
+    row = rows_by[f"powerlaw1M_b{b}_cached_bfloat16_direct_k4"]
+    assert row["launches"] == big_launches(n, d, b, row["honest_T"], 1,
+                                           4), row
+    b = bigscale_bench.UNSUP_BATCH
+    unsup = rows_by[f"powerlaw1M_b{b}_cached_bfloat16_unsup"]
+    assert unsup["launches"] == big_launches(
+        n, d, b, -(-train_split // b), unsup=True), unsup
+    log(f"[config5] launches of every row equal the code's prediction")
+    phase_mark("phase 14: bigscale_bench rows")
+
+    # -------- profile_bigscale
+    t0 = time.perf_counter()
+    b, steps = profile_bigscale.BATCH, profile_bigscale.STEPS
+    prof = profile_bigscale.run(ds, pad, feats, dev, b, steps, log=log)
+    log(f"[config5] profile_bigscale {json.dumps(prof)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    want = {"refresh_ms": launch_counts(gather_mean=3),
+            "steponly_ms_per_step": big_launches(n, d, b, steps, 0),
+            "forward_only_ms_per_step": big_launches(n, d, b, steps, 0,
+                                                     backward=False),
+            "stopgrad_w1_ms_per_step": big_launches(n, d, b, steps, 0,
+                                                    backward=False)}
+    assert prof["launches"] == want, (prof["launches"], want)
+
+    # -------- refresh_locality
+    t0 = time.perf_counter()
+    loc = refresh_locality.run(ds, pad, feats, dev, log=log)
+    log(f"[config5] refresh_locality {json.dumps(loc)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    phase_mark("phase 14: profile_bigscale, refresh_locality")
+
+    # -------- the 1M serving row (infer_bench --bigscale's)
+    spec = next(s for s in infer_bench._row_specs(bigscale=True)
+                if s["name"] == BIG_SERVE_ROW)
+    with first_calls(infer, "mean_aggregate", serving, big_key):
+        srow, emb = infer_bench.serve_row(
+            BIG_SERVE_ROW, ds, infer_bench.padded(ds, spec["width"]),
+            spec["dtype"], spec["agg"], spec["note"], dev)
+    assert srow["launches"] == launch_counts(gather_mean=2), srow
+    assert emb.shape == (n, HIDDEN) and np.isfinite(emb).all()
+    log(f"[config5] {json.dumps(srow)}")
+    del emb
+    torch.cuda.empty_cache()
+
+    # -------- kernel rows of the 602-wide path, against the plain versions
+    kernels = []
+    (refresh,) = refreshes.values()
+    embed, idx, mask = refresh["args"]
+    kernels.append(kernel_row(
+        "gather_mean", f"config 5 refresh, bf16, idx {list(idx.shape)} over "
+        f"{list(embed.shape)}", embed, idx, mask,
+        rows_by[f"powerlaw1M_b{bigscale_bench.SUP_BATCHES[0]}_cached_"
+                f"bfloat16"]["launches"]["gather_mean"], block=BIG_BLOCK))
+    err = max(check_close(f"[config5] the first refresh rows {lo}:"
+                          f"{lo + BIG_BLOCK}",
+                          refresh["out"][lo:lo + BIG_BLOCK],
+                          agg.mean_aggregate_plain(
+                              embed, idx[lo:lo + BIG_BLOCK],
+                              mask[lo:lo + BIG_BLOCK]))
+              for lo in range(0, n, BIG_BLOCK))
+    log(f"[config5] the main path's first refresh against the plain "
+        f"version, {-(-n // BIG_BLOCK)} blocks of {BIG_BLOCK} rows: max abs "
+        f"error {err}")
+    del refreshes, refresh, embed, idx, mask
+    (serve,) = serving.values()
+    kernels.append(kernel_row(
+        "gather_mean", f"serving {BIG_SERVE_ROW} layers 1-2, bf16, idx "
+        f"{list(serve['args'][1].shape)} over {list(serve['args'][0].shape)}"
+        f", stride {serve['args'][0].stride(0)}", *serve["args"],
+        srow["launches"]["gather_mean"], block=BIG_BLOCK))
+    del serving, serve
+    steps_of = {b: -(-train_split // b) for b in
+                (*bigscale_bench.SUP_BATCHES, bigscale_bench.UNSUP_BATCH)}
+    kernels.extend(big_gather_rows(gathers, {
+        ((n, HIDDEN), b * (FANOUT + 1)): (
+            f"config 5 b{b} full table, {b * (FANOUT + 1)} ids over "
+            f"[{n}, {HIDDEN}]", steps_of[b])
+        for b in steps_of}))
+    del gathers
+    torch.cuda.empty_cache()
+    phase_mark("phase 14: kernel rows of the 602-wide path")
+
+    # -------- train_1m_e2e, two epochs (a cut of scale only)
+    del feats, ds, pad, record
+    torch.cuda.empty_cache()
+    ds64, gen64_s = train_1m_e2e.load(n, e)
+    log(f"[config5] the {train_1m_e2e.FEATS}-wide dataset generated in "
+        f"{gen64_s:.3f} s (host)")
+    refreshes, gathers = {}, {}
+    out_dir = os.path.join(BUILD_DIR, "chip_smoke_config5")
+    agg.reset_launches()
+    t0 = time.perf_counter()
+    with first_calls(cached, "mean_aggregate", refreshes, big_key), \
+            first_calls(cached, "gather_rows", gathers, big_key):
+        rec, tr = train_1m_e2e.run(ds64, dev, out_dir, BIG_EPOCHS,
+                                   train_1m_e2e.B_SZ, gen64_s, e, log=log)
+    torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    # the timed epochs and the idle probe's epoch
+    want = trainer_launches(tr, BIG_EPOCHS + 1)
+    tr.pair_sampler.close()
+    log(f"[config5] train_1m_e2e {json.dumps(rec)} "
+        f"({time.perf_counter() - t0:.3f} s); launches {launches}; "
+        f"predicted from the code {want}")
+    assert launches == want, (launches, want)
+    assert len(rec["epochs"]) == BIG_EPOCHS
+    losses = [ep["mean_loss"] for ep in rec["epochs"]]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0], losses
+    log(f"[config5] train_1m_e2e mean losses {losses}, val F1 "
+        f"{[ep['val_f1'] for ep in rec['epochs']]}, best val F1 "
+        f"{rec['best_val_f1']}")
+    m1 = train_1m_e2e.B_SZ * (FANOUT + 1)
+    key = ((n, train_1m_e2e.FEATS), m1)
+    assert not cached.layer1_full_table(n, train_1m_e2e.FEATS, m1, HIDDEN)
+    embed, idx, mask = refreshes[((n, train_1m_e2e.FEATS), n)]["args"]
+    kernels.append(kernel_row(
+        "gather_mean", f"train_1m_e2e refresh, bf16, idx {list(idx.shape)} "
+        f"over {list(embed.shape)}", embed, idx, mask,
+        launches["gather_mean"], block=BIG_BLOCK))
+    table, idx = gathers[key]["args"]
+    kernels.append(gather_row(
+        f"train_1m_e2e per occurrence, {m1} ids over {list(table.shape)}",
+        table, idx, launches["gather_rows"]))
+    del refreshes, gathers, tr, ds64
+    torch.cuda.empty_cache()
+    return kernels
 
 
 def main() -> int:
@@ -3948,6 +4251,10 @@ def run(dev: torch.device) -> int:
 
     rows.extend(bench_phase(ds, bf16_runs["e"]["summary"], dev))
     phase_done("phase 13 (bench rows)")
+
+    del ds
+    rows.extend(config5_phase(dev, phase_done))
+    phase_done("phase 14 (config 5)")
 
     print(json.dumps({"kernels": rows}))
     print(smi)

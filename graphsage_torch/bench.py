@@ -210,11 +210,13 @@ def card(dev: torch.device) -> tuple[str, str | None]:
     return torch.cuda.get_device_name(dev), limit
 
 
-def _setup(ds, pad, dtype, batch, steps, hidden, dev, agg_func="MEAN"):
+def _setup(ds, pad, dtype, batch, steps, hidden, dev, agg_func="MEAN",
+           feats=None):
     """The config, float32 master params from a torch.Generator seeded
-    PARAM_SEED, the feature table in the compute dtype, a HopSampler on a
-    device generator seeded SAMPLER_SEED, and the batch stack
-    RandomState(0).randint(0, N, (steps, batch)) with its labels."""
+    PARAM_SEED, the feature table in the compute dtype (``ds.features``
+    uploaded, or ``feats`` as given: a table already on ``dev``), a
+    HopSampler on a device generator seeded SAMPLER_SEED, and the batch
+    stack RandomState(0).randint(0, N, (steps, batch)) with its labels."""
     mcfg = GraphSageConfig(num_layers=2, input_size=ds.feature_dim,
                            out_size=hidden, compute_dtype=dtype,
                            agg_func=agg_func)
@@ -222,7 +224,8 @@ def _setup(ds, pad, dtype, batch, steps, hidden, dev, agg_func="MEAN"):
     params = _leaf_params({"sage": init_graphsage(gen, mcfg),
                            "clf": init_classifier(gen, hidden,
                                                   ds.num_classes)}, dev)
-    feats = torch.from_numpy(ds.features).to(dev, compute_dtype(mcfg))
+    if feats is None:
+        feats = torch.from_numpy(ds.features).to(dev, compute_dtype(mcfg))
     hop = HopSampler(torch.from_numpy(pad.neighbors).to(dev),
                      torch.from_numpy(pad.degrees).to(dev),
                      torch.Generator(device=dev).manual_seed(SAMPLER_SEED))
@@ -340,12 +343,13 @@ def run_row(name, ds, pad, pipeline, batch, dtype, fanout=10, hidden=128,
 
 
 def run_unsup_row(name, ds, pad, batch, dtype, fanout=10, hidden=128,
-                  steps=20, n_targets=4096, n_pos=6, n_neg=20, device=None):
+                  steps=20, n_targets=4096, n_pos=6, n_neg=20, device=None,
+                  feats=None):
     """The unsup (normal loss) cached row: encode, the pair scores and the
-    Q-weighted loss each step."""
+    Q-weighted loss each step (``feats``: as :func:`_setup` takes it)."""
     dev = _resolve_device(device)
     mcfg, params, feats, hop, batches, labels = _setup(
-        ds, pad, dtype, batch, steps, hidden, dev)
+        ds, pad, dtype, batch, steps, hidden, dev, feats=feats)
     epoch = cached_epoch(mcfg, fanout,
                          unsup_pairs(batch, dev, n_targets, n_pos, n_neg))
     dt, reps, launches = _timed(epoch, (params, feats, hop, batches, labels),
