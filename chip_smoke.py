@@ -292,6 +292,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    - profile_bigscale (B 65536, 20 steps: the refresh, the steps alone,
      forward only, the first layer's gradient stopped, the device's busy
      time by kernel over a step-only epoch), its launches predicted;
+   - step_anatomy's 1m workload at B 65536 on the same graph and table
+     (phase 15's checks);
    - refresh_locality (the refresh under the raw and the BFS labeling);
    - infer_bench's powerlaw1M_cap16_bf16 serving row, its launches
      predicted;
@@ -311,6 +313,26 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    gather_mean at both refreshes and at the serving row's layers (plain_ms
    the sum of its blocks), gather_rows and scatter_rows at the three
    full-table shapes, gather_rows at train_1m_e2e's per-occurrence gather.
+15. The ports of the JAX system's anatomy tools, in this process, on phase
+   3's graph, before phase 14 (and step_anatomy's 1m workload inside it):
+   - step_anatomy (the 100k workload, B 65536, bfloat16: each slice of the
+     cached step a warm call and 20 timed calls): every slice finite and
+     above 0, the derived slices equal to the JAX tool's formulas, each
+     slice's launches equal to those the code predicts
+     (anatomy_launches);
+   - profile_cached (B 32768, both compute dtypes, 30 iterations a call;
+     the isolated rows at 360,448 uniform rolled ids): every row's time
+     finite, its launches as predicted;
+   - profile_unsup ([4096 x 32768] pair-loss blocks, H 128, bfloat16, and
+     the sup and unsup epochs at batch 32768): the three blocks' loss and
+     gradient within the bfloat16 bars of one another (loss rtol 1e-2,
+     gradient within 2e-2 of its largest element), launches as predicted.
+   Kernel rows: pair_scores at [4096 x 32768], H 128, bfloat16, with
+   dense_pair_scores' device time beside it (the input of
+   dense_block_pays); gather_rows (float32 and bfloat16) and the bfloat16
+   scatter_rows at profile_cached's 360,448 uniform ids over [100000, 128].
+   step_anatomy's scatter_bound is printed beside its chain bound: its
+   rows are all ones, and the frontier's padding slots all name row 0.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -350,13 +372,15 @@ import torch
 import torch.nn.functional as F
 
 from graphsage_torch import (bench, bigscale_bench, cli, infer, infer_bench,
-                             microbench, profile_bigscale, refresh_locality,
+                             microbench, profile_bigscale, profile_cached,
+                             profile_unsup, refresh_locality, step_anatomy,
                              train_1m_e2e)
 from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
-from graphsage_torch.microbench import (F32_OPS_PER_S, HBM_BYTES_PER_S,
-                                        cuda_ms, device_ms, times)
+from graphsage_torch.microbench import (BF16_OPS_PER_S, F32_OPS_PER_S,
+                                        HBM_BYTES_PER_S, cuda_ms, device_ms,
+                                        times)
 from graphsage_torch.models import (GraphSageConfig, graphsage,
                                     init_classifier, init_graphsage, lstm_agg)
 from graphsage_torch.native import build as native_build
@@ -1111,7 +1135,9 @@ def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
     es = emb.element_size()
     nbytes = u * h * es + b * 4 + b * u * es
     ops = 2 * b * u * h + 3 * (u + b) * h
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    # the peak of the inputs' type: bfloat16 at the tensor cores' rate
+    rate = BF16_OPS_PER_S if emb.dtype == torch.bfloat16 else F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     t_long = target_rows.long()
     library = lambda: torch.mm(F.normalize(emb[t_long], eps=1e-8),
                                F.normalize(emb, eps=1e-8).T)
@@ -3858,6 +3884,167 @@ def bench_phase(ds, e_summary: dict, dev: torch.device) -> list:
     return [kernel]
 
 
+# ------------------------------------------------------------ anatomy tools
+
+# phase 15: the ports of tools/step_anatomy.py, profile_cached.py and
+# profile_unsup.py; step_anatomy's batch (the JAX tool's default)
+ANATOMY_BATCH = 65536
+
+
+def anatomy_launches(n: int, d: int, batch: int, reps: int) -> dict:
+    """Each bfloat16 slice's launches over its timed calls, from the code's
+    rules (big_launches: the frontier's gathers by the layer-1 rule; the
+    full-table gather's backward one scatter_rows)."""
+    step = big_launches(n, d, batch, reps, 0)
+    return {"timing_floor": launch_counts(), "sampling": launch_counts(),
+            "l1_gemm": launch_counts(),
+            "l1_gemm_plus_gather": launch_counts(gather_rows=reps),
+            "fwd": big_launches(n, d, batch, reps, 0, backward=False),
+            "fwd_bwd": step, "step": step,
+            "scatter_bound": launch_counts(scatter_rows=reps),
+            "gather_bound": launch_counts(gather_rows=reps)}
+
+
+def check_anatomy(tag: str, res: dict, n: int, d: int,
+                  ids: torch.Tensor) -> None:
+    """A step_anatomy row: its slices finite and above 0, the derived
+    slices by the JAX tool's formulas, the launches predicted; the
+    scatter_bound slice beside its chain bound (its dout is all ones, so
+    no contribution is skipped: the longest row of ``ids`` is its
+    chain)."""
+    log(f"[anatomy {tag}] {json.dumps(res)}")
+    counts = torch.bincount(ids.long())
+    chain = int(counts.max())
+    log(f"[anatomy {tag}] scatter_bound: all-ones dout over the frontier's "
+        f"{ids.shape[0]} ids, the longest row (id {int(counts.argmax())}) "
+        f"{chain} contributions, chain bound {chain * ADD_NS / 1e6:.6f} ms "
+        f"at {ADD_NS:.6f} ns an add, against "
+        f"{res['scatter_bound_ms']:.6f} ms")
+    assert ids.shape[0] == res["frontier_rows"], tag
+    for name in step_anatomy.SLICES:
+        ms = res[f"{name}_ms"]
+        assert np.isfinite(ms) and ms > 0, (tag, name, ms)
+    assert res["h1_gather_ms"] == (res["l1_gemm_plus_gather_ms"]
+                                   - res["l1_gemm_ms"]), tag
+    assert res["upper_plus_head_fwd_ms"] == (
+        res["fwd_ms"] - res["l1_gemm_plus_gather_ms"] - res["sampling_ms"]
+        + res["timing_floor_ms"]), tag
+    assert res["backward_ms"] == res["fwd_bwd_ms"] - res["fwd_ms"], tag
+    assert res["opt_ms"] == res["step_ms"] - res["fwd_bwd_ms"], tag
+    want = anatomy_launches(n, d, res["batch"], step_anatomy.REPS)
+    assert res["launches"] == want, (tag, res["launches"], want)
+    log(f"[anatomy {tag}] launches of every slice equal the code's "
+        f"prediction; step idle share "
+        f"{res['step_profile']['idle_share']}")
+
+
+def cached_row_launches(op: str, n: int, d: int) -> dict:
+    """A profile_cached row's launches in one call of its program."""
+    b, iters = profile_cached.B, profile_cached.ITERS
+    bf16 = op.endswith("bfloat16")
+    if op.startswith("refresh_leaf_cache"):
+        return launch_counts(gather_mean=iters)
+    if op.startswith(("full_step", "fwd_bwd")):
+        return big_launches(n, d, b, iters, 0, backward=bf16)
+    if op.startswith("forward_only"):
+        return big_launches(n, d, b, iters, 0, backward=False)
+    if op.startswith("gather_"):
+        return launch_counts(gather_rows=iters)
+    if op.startswith("scatter_add_"):
+        return launch_counts(scatter_rows=iters * int(bf16))
+    return launch_counts()   # the GEMM, the sampling, sort + index_add_
+
+
+def anatomy_phase(ds, dev: torch.device, phase_mark) -> list:
+    """Phase 15: the three anatomy tools on the 100k graph; returns their
+    kernel rows."""
+    pad = ds.graph.to_padded_sampled(WIDTH, np.random.RandomState(99))
+    t0 = time.perf_counter()
+    keep = {}
+    check_anatomy("100k", step_anatomy.anatomy(ds, pad, ANATOMY_BATCH, dev,
+                                               log=log, keep=keep), NODES,
+                  FEATS, keep["ids"])
+    log(f"[anatomy] step_anatomy 100k in {time.perf_counter() - t0:.3f} s")
+    phase_mark("phase 15: step_anatomy 100k")
+
+    t0 = time.perf_counter()
+    record = profile_cached.run(ds, pad, dev, log=log)
+    log(f"[anatomy] profile_cached {json.dumps(record)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    rows = {r["op"]: r for r in record["rows"]}
+    for op, row in rows.items():
+        assert np.isfinite(row["ms"]) and row["ms"] > 0, row
+        want = cached_row_launches(op, NODES, FEATS)
+        assert row["launches"] == want, (op, row["launches"], want)
+    log("[anatomy] profile_cached launches of every row equal the code's "
+        "prediction")
+    phase_mark("phase 15: profile_cached")
+
+    t0 = time.perf_counter()
+    res = profile_unsup.run(ds, pad, dev, log=log)
+    log(f"[anatomy] profile_unsup {json.dumps(res)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    u, steps = profile_unsup.U, profile_unsup.STEPS
+    want = {"block_sddmm_pallas_ms": launch_counts(pair_scores=1),
+            "block_sddmm_xla_ms": launch_counts(),
+            "block_gathered_ms": launch_counts(),
+            "sup_step_ms": big_launches(NODES, FEATS, u, steps),
+            "unsup_step_ms": big_launches(NODES, FEATS, u, steps,
+                                          unsup=True)}
+    assert res["launches"] == want, (res["launches"], want)
+    for name in want:
+        assert np.isfinite(res[name]) and res[name] > 0, (name, res[name])
+    pairs, emb = profile_unsup.block_inputs(dev)
+    ref_loss, ref_grad = profile_unsup.block_fn("sddmm_xla", pairs)(emb)
+    for variant in ("sddmm_pallas", "gathered"):
+        loss, grad = profile_unsup.block_fn(variant, pairs)(emb)
+        dl = abs(float(loss) - float(ref_loss))
+        dg = float((grad.float() - ref_grad.float()).abs().max())
+        bar_l = 1e-2 * abs(float(ref_loss))
+        bar_g = 2e-2 * float(ref_grad.float().abs().max())
+        log(f"[anatomy] block {variant} against sddmm_xla: dloss {dl} "
+            f"(bar {bar_l}), dgrad_max {dg} (bar {bar_g})")
+        assert dl <= bar_l and dg <= bar_g, (variant, dl, dg)
+    phase_mark("phase 15: profile_unsup")
+
+    # -------- kernel rows at the tools' shapes, against the plain versions
+    targets = pairs["target_rows"]
+    kernels = [scores_row(
+        f"profile_unsup block, {targets.shape[0]} x {u}, H "
+        f"{profile_unsup.H}, bf16", emb, targets,
+        res["launches"]["block_sddmm_pallas_ms"]["pair_scores"])]
+    kernels[0]["plain_device_ms"] = device_ms(
+        lambda: sddmm.dense_pair_scores(emb, targets))
+    b, n_pairs = targets.shape[0], targets.numel() * (profile_unsup.P
+                                                      + profile_unsup.M)
+    log(f"kernel {kernels[0]['name']}: dense_pair_scores device_ms "
+        f"{kernels[0]['plain_device_ms']:.6f}; dense_block_pays({b}, {u}, "
+        f"{n_pairs}, {profile_unsup.H}) is "
+        f"{sddmm.dense_block_pays(b, u, n_pairs, profile_unsup.H)}")
+    del pairs, emb, targets
+    m = profile_cached.B * (FANOUT + 1)
+    ids = torch.from_numpy(profile_cached.uniform_ids(NODES, m)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        table = torch.randn(NODES, HIDDEN, generator=gen, device=dev).to(
+            dtype)
+        kernels.append(gather_row(
+            f"profile_cached uniform ids, {m} over [{NODES}, {HIDDEN}], "
+            f"{name}", table, ids,
+            rows[f"gather_{m}x{HIDDEN}_{name}"]["launches"]["gather_rows"]))
+    g = torch.randn(m, HIDDEN, generator=gen, device=dev).bfloat16()
+    kernels.append(scatter_row(
+        f"profile_cached uniform ids, {m} rows into [{NODES}, {HIDDEN}]", g,
+        ids, NODES,
+        rows[f"scatter_add_{m}x{HIDDEN}_bfloat16"]["launches"][
+            "scatter_rows"]))
+    del table, g, ids
+    torch.cuda.empty_cache()
+    phase_mark("phase 15: kernel rows")
+    return kernels
+
+
 # ------------------------------------------------------------ config 5
 
 # phase 14: BASELINE.json's config 5 (graphsage_torch.bigscale_bench's
@@ -4010,6 +4197,14 @@ def config5_phase(dev: torch.device, phase_mark) -> list:
             "stopgrad_w1_ms_per_step": big_launches(n, d, b, steps, 0,
                                                     backward=False)}
     assert prof["launches"] == want, (prof["launches"], want)
+
+    # -------- step_anatomy's 1m workload (phase 15's checks)
+    t0 = time.perf_counter()
+    keep = {}
+    check_anatomy("1m", step_anatomy.anatomy(ds, pad, ANATOMY_BATCH, dev,
+                                             feats=feats, log=log,
+                                             keep=keep), n, d, keep["ids"])
+    log(f"[config5] step_anatomy 1m in {time.perf_counter() - t0:.3f} s")
 
     # -------- refresh_locality
     t0 = time.perf_counter()
@@ -4251,6 +4446,9 @@ def run(dev: torch.device) -> int:
 
     rows.extend(bench_phase(ds, bf16_runs["e"]["summary"], dev))
     phase_done("phase 13 (bench rows)")
+
+    rows.extend(anatomy_phase(ds, dev, phase_done))
+    phase_done("phase 15 (anatomy tools)")
 
     del ds
     rows.extend(config5_phase(dev, phase_done))

@@ -197,6 +197,25 @@ def sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def timed_calls(fn, dev: torch.device, reps: int = TIMED_REPS):
+    """fn() once warm, then ``reps`` calls, each between two
+    synchronisations: (the median s of a call, [s of each call], the
+    kernel launches of the first timed call, the last call's result)."""
+    fn()
+    ts = []
+    for rep in range(reps):
+        sync(dev)
+        if rep == 0:
+            agg.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync(dev)
+        ts.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = dict(agg.LAUNCHES)
+    return float(np.median(ts)), ts, launches, out
+
+
 def card(dev: torch.device) -> tuple[str, str | None]:
     """(device name, power limit as nvidia-smi prints it); ("cpu", None)
     on the CPU."""
@@ -257,12 +276,14 @@ def cached_epoch(mcfg: GraphSageConfig, fanout: int = 10, pairs=None):
 
 
 def unsup_pairs(batch: int, dev: torch.device, n_targets: int = 4096,
-                n_pos: int = 6, n_neg: int = 20) -> dict:
+                n_pos: int = 6, n_neg: int = 20, rng=None) -> dict:
     """The unsup row's pair tensors, synthesized at production shapes:
     targets the first ``n_targets`` rows, P positives and M negatives each
-    drawn from RandomState(3) over the batch's rows (positives first), all
-    masks 1.  Index content does not change the step's cost."""
-    rng = np.random.RandomState(3)
+    drawn from ``rng`` (by default a new RandomState(3)) over the batch's
+    rows (positives first), all masks 1.  Index content does not change
+    the step's cost."""
+    if rng is None:
+        rng = np.random.RandomState(3)
     pos_q = rng.randint(0, batch, (n_targets, n_pos)).astype(np.int32)
     neg_q = rng.randint(0, batch, (n_targets, n_neg)).astype(np.int32)
     return {
@@ -280,21 +301,11 @@ def _timed(epoch, args, steps: int, dev: torch.device):
     """One warm epoch, then TIMED_REPS epochs, each between two
     synchronisations.  Returns (median s a step, [s a step of each rep],
     the kernel launches of the first timed epoch)."""
-    epoch(*args)
-    reps = []
-    for rep in range(TIMED_REPS):
-        sync(dev)
-        if rep == 0:
-            agg.reset_launches()
-        t0 = time.perf_counter()
-        losses = epoch(*args)
-        sync(dev)
-        reps.append((time.perf_counter() - t0) / steps)
-        if rep == 0:
-            launches = dict(agg.LAUNCHES)
+    _, ts, launches, losses = timed_calls(lambda: epoch(*args), dev)
     if not bool(torch.isfinite(losses).all()):
         raise FloatingPointError(f"non-finite epoch losses: "
                                  f"{losses.tolist()}")
+    reps = [t / steps for t in ts]
     return float(np.median(reps)), reps, launches
 
 

@@ -305,17 +305,19 @@ def run(ds, pad, feats, rows: set, dev: torch.device, gen_s: float,
     }
 
 
-def write_merged(record: dict, out_dir: str, name: str = OUT_FILE) -> str:
+def write_merged(record: dict, out_dir: str, name: str = OUT_FILE,
+                 key=lambda row: row.get("name")) -> str:
     """``record`` into ``out_dir/name``, after the rows of an earlier file
-    there that this run did not measure (fresh rows win)."""
+    there that this run did not measure, a row known by ``key(row)``
+    (fresh rows win)."""
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, name)
     if os.path.exists(path):
         with open(path) as f:
             old = json.load(f)
-        have = {r["name"] for r in record["rows"]}
+        have = {key(r) for r in record["rows"]}
         record = dict(record, rows=record["rows"] + [
-            r for r in old.get("rows", []) if r.get("name") not in have])
+            r for r in old.get("rows", []) if key(r) not in have])
     with open(path, "w") as f:
         json.dump(record, f, indent=1)
     return path

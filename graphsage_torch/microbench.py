@@ -45,6 +45,7 @@ from graphsage_torch.ops import gather, sddmm
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
 N, H = 100_000, 128
 U, S = 45056, 11
 FEATS, FANOUT, PER_OCCURRENCE = 602, 10, 5632

@@ -381,7 +381,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.train.dist_trainer, graphsage_torch.bench, "
         "graphsage_torch.infer_bench, graphsage_torch.bigscale_bench, "
         "graphsage_torch.profile_bigscale, "
-        "graphsage_torch.refresh_locality, graphsage_torch.train_1m_e2e\n"
+        "graphsage_torch.refresh_locality, graphsage_torch.train_1m_e2e, "
+        "graphsage_torch.step_anatomy, graphsage_torch.profile_cached, "
+        "graphsage_torch.profile_unsup\n"
         "import chip_smoke, tests.torch_dist_worker\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
         "for m, v in sys.modules.items() if v is not None)\n")
