@@ -333,6 +333,25 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    scatter_rows at profile_cached's 360,448 uniform ids over [100000, 128].
    step_anatomy's scatter_bound is printed beside its chain bound: its
    rows are all ones, and the frontier's padding slots all name row 0.
+16. The ports of the JAX system's scaling tools, in this process, on phase
+   3's graph, after phase 15:
+   - halo_overhead chip (b_loc 4096, bfloat16, world 1 over NCCL): the
+     dist step and the JAX tool's local oracle (the layer-0 rows gathered
+     from the raw table, no exchange), its row beside phase 11 (o)'s
+     overhead; the first losses of the two programs within
+     BF16_LOSS_RTOL, each chain's launches equal to those the code
+     predicts (halo_chip_launches);
+   - scaling_bench halo and cached at their defaults (float32, b_loc
+     256), world 1 over NCCL: edges/s, launches as predicted
+     (scaling_launches);
+   - pairs_scale_bench in full, GS_EXACT_NEG_BUDGET_S at its default
+     (the auto rule's estimate logged first): auto picks exact.
+   Kernel rows: every launch of gather_rows, gather_mean and scatter_rows
+   in those three runs is recorded by kernel and shapes (kernel_calls);
+   each shape gets a row on the arguments of its first launch, with the
+   launches at that shape, all timed on a cold L2 (the paths rewrite
+   their tables between launches, and the smaller working sets would
+   otherwise stay in the 50 MB L2 between timed launches).
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -371,16 +390,17 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from graphsage_torch import (bench, bigscale_bench, cli, infer, infer_bench,
-                             microbench, profile_bigscale, profile_cached,
-                             profile_unsup, refresh_locality, step_anatomy,
-                             train_1m_e2e)
+from graphsage_torch import (bench, bigscale_bench, cli, halo_overhead,
+                             infer, infer_bench, microbench,
+                             pairs_scale_bench, profile_bigscale,
+                             profile_cached, profile_unsup, refresh_locality,
+                             scaling_bench, step_anatomy, train_1m_e2e)
 from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
 from graphsage_torch.microbench import (BF16_OPS_PER_S, F32_OPS_PER_S,
-                                        HBM_BYTES_PER_S, cuda_ms, device_ms,
-                                        times)
+                                        HBM_BYTES_PER_S, cold_ms, cuda_ms,
+                                        device_ms, times)
 from graphsage_torch.models import (GraphSageConfig, graphsage,
                                     init_classifier, init_graphsage, lstm_agg)
 from graphsage_torch.native import build as native_build
@@ -571,11 +591,13 @@ def small_graph_check(dev: torch.device) -> None:
 
 def kernel_row(name: str, label: str, embed: torch.Tensor,
                idx: torch.Tensor, mask: torch.Tensor,
-               launches: int, block: int | None = None) -> dict:
+               launches: int, block: int | None = None,
+               cold: bool = False) -> dict:
     """The kernel against its plain version, and its row.  With ``block``
     the plain version runs on blocks of that many rows of idx (its
     [U, S, D] gather would not fit whole): the check goes block by block
-    and ``plain_ms`` is the sum of the blocks' times."""
+    and ``plain_ms`` is the sum of the blocks' times.  With ``cold`` every
+    time is taken on a cold L2 (``microbench.times``)."""
     kernel = agg.mean_aggregate if name == "gather_mean" else agg.max_aggregate
     plain = (agg.mean_aggregate_plain if name == "gather_mean"
              else agg.max_aggregate_plain)
@@ -613,6 +635,7 @@ def kernel_row(name: str, label: str, embed: torch.Tensor,
         library_note = "F.embedding_bag(mode='max') over the valid slots"
     library_err = float((library().float() - got.float()).abs().max())
 
+    timer = cold_ms if cold else cuda_ms
     row = {
         "name": f"{name} ({label})",
         "route": "cuda",
@@ -621,12 +644,12 @@ def kernel_row(name: str, label: str, embed: torch.Tensor,
         "launches": launches,
         "max_abs_err": err,
         **times(lambda: kernel(embed, idx, mask), "gather_reduce_kernel",
-                library=library, reps=20),
-        "plain_ms": (cuda_ms(lambda: plain(embed, idx, mask), reps=5)
+                library=library, reps=20, cold=cold),
+        "plain_ms": (timer(lambda: plain(embed, idx, mask), reps=5)
                      if block is None else
-                     sum(cuda_ms(lambda: plain(embed, idx[lo:hi],
-                                               mask[lo:hi]), reps=1,
-                                 warmup=1) for lo, hi in blocks)),
+                     sum(timer(lambda: plain(embed, idx[lo:hi],
+                                             mask[lo:hi]), reps=1,
+                               warmup=1) for lo, hi in blocks)),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
@@ -1215,7 +1238,7 @@ def add_latency(dev: torch.device) -> float:
 
 
 def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
-                launches: int) -> dict:
+                launches: int, cold: bool = False) -> dict:
     """scatter_rows against its plain version on the card and on the CPU
     (bit for bit: both add in JAX's order), and its kernel row: the bound
     is the larger of the bytes (g read once, since the zero test reads
@@ -1223,7 +1246,8 @@ def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
     chain of the longest row's dependent adds at ADD_NS each (bound_by
     "operations"); the library call is index_add_ of the same rows
     (bfloat16 atomics, in another order), the plain version the
-    rank-by-rank adds on the card."""
+    rank-by-rank adds on the card.  With ``cold`` every time is taken on a
+    cold L2 (``microbench.times``)."""
     g, idx = g.contiguous(), idx.reshape(-1).int().contiguous()
     got = scatter.scatter_rows_kernel(g, idx, m)
     torch.cuda.synchronize()
@@ -1247,9 +1271,11 @@ def scatter_row(label: str, g: torch.Tensor, idx: torch.Tensor, m: int,
         **times(lambda: scatter.scatter_rows_kernel(g, idx, m), None,
                 library=lambda: torch.zeros(m, d, dtype=g.dtype,
                                             device=g.device).index_add_(
-                                                0, long_idx, g), reps=20),
-        "plain_ms": cuda_ms(lambda: scatter.scatter_rows_plain(g, idx, m),
-                            reps=2, warmup=1),
+                                                0, long_idx, g), reps=20,
+                cold=cold),
+        "plain_ms": (cold_ms if cold else cuda_ms)(
+            lambda: scatter.scatter_rows_plain(g, idx, m), reps=2,
+            warmup=1),
         "bound_ms": max(bytes_ms, chain_ms),
         "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
         "bytes_ms": bytes_ms,
@@ -1589,8 +1615,9 @@ def predicted_launches(tr: CachedTrainer, records: list,
 
 
 def gather_row(label: str, table: torch.Tensor, idx: torch.Tensor,
-               launches: int) -> dict:
-    """gather_rows against index_select (exact), and its kernel row."""
+               launches: int, cold: bool = False) -> dict:
+    """gather_rows against index_select (exact), and its kernel row (with
+    ``cold``, timed on a cold L2)."""
     got = gather.gather_rows_kernel(table, idx)
     torch.cuda.synchronize()
     assert torch.equal(got, gather.gather_rows_plain(table, idx)), label
@@ -1607,9 +1634,9 @@ def gather_row(label: str, table: torch.Tensor, idx: torch.Tensor,
         "max_abs_err": 0.0,
         **times(lambda: gather.gather_rows_kernel(table, idx),
                 "gather_rows_kernel",
-                library=lambda: table.index_select(0, idx)),
-        "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(table, idx),
-                            reps=50),
+                library=lambda: table.index_select(0, idx), cold=cold),
+        "plain_ms": (cold_ms if cold else cuda_ms)(
+            lambda: gather.gather_rows_plain(table, idx), reps=50),
         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
@@ -3482,7 +3509,7 @@ def cli_dist_r(dev: torch.device) -> dict:
 def dist_phase(ds, runs: dict, dev: torch.device, phase_mark) -> list:
     """Phase 11: distribution at world 1 on NCCL: (n) cached_dist, (o) and
     (p) the halo pipeline, (q) sharded serving, then (r) the CLI under
-    torchrun; returns the kernel rows."""
+    torchrun; returns the kernel rows and each run's summary."""
     dev = multihost.initialize(dev)
     rank, world = comm.rank_world()
     log(f"dist: process group rank {rank} of {world}, backend "
@@ -3514,7 +3541,7 @@ def dist_phase(ds, runs: dict, dev: torch.device, phase_mark) -> list:
     torch.cuda.empty_cache()
     summaries["r"] = cli_dist_r(dev)
     log(json.dumps({"dist": summaries}))
-    return rows
+    return rows, summaries
 
 
 TP_STEPS = 5
@@ -4045,6 +4072,191 @@ def anatomy_phase(ds, dev: torch.device, phase_mark) -> list:
     return kernels
 
 
+# ------------------------------------------------------------ scaling tools
+
+# phase 16: the ports of tools/halo_overhead.py, scaling_bench.py and
+# pairs_scale_bench.py; halo_overhead chip's batch a rank (the JAX tool's)
+HALO_B_LOC = 4096
+
+
+@contextlib.contextmanager
+def exact_negatives_budget():
+    """``GS_EXACT_NEG_BUDGET_S`` at its default (main sets it to 0 for the
+    other phases' uniform negatives), restored after."""
+    saved = os.environ.pop("GS_EXACT_NEG_BUDGET_S", None)
+    try:
+        yield
+    finally:
+        if saved is not None:
+            os.environ["GS_EXACT_NEG_BUDGET_S"] = saved
+
+
+def halo_chip_launches(reps: int) -> dict:
+    """halo_overhead chip's launches over each chain of ``reps`` bf16
+    steps, from the code: the dist step as phase 11 (o) counts it (the
+    exchange's three gathers, two gather_mean layers, a scatter_rows for
+    each gather's gradient: the exchange's three, both aggregates' and
+    both self-row gathers'); the local oracle one gather_rows of the
+    feature table, two gather_mean layers, and scatter_rows only for layer
+    2's aggregate and self-row gather (layer 1 reads rows of the feature
+    table, which takes no gradient)."""
+    return {"dist_step": launch_counts(gather_mean=2 * reps,
+                                       gather_rows=3 * reps,
+                                       scatter_rows=7 * reps),
+            "local_oracle": launch_counts(gather_mean=2 * reps,
+                                          gather_rows=reps,
+                                          scatter_rows=2 * reps)}
+
+
+def scaling_launches(pipeline: str, steps: int, t_steps: int) -> dict:
+    """scaling_bench's launches in world 1's timed part, float32 (every
+    backward is index_add_): halo, each step the exchange's three
+    gathers and two gather_mean layers; cached, each of the 3 timed epochs
+    a refresh (one gather_mean) and per step the layer-1 row gather (layer
+    2 aggregates the dense tree by a reshape, no kernel)."""
+    if pipeline == "halo":
+        return launch_counts(gather_mean=2 * steps, gather_rows=3 * steps)
+    reps = scaling_bench.CACHED_REPS
+    return launch_counts(gather_mean=reps, gather_rows=reps * t_steps)
+
+
+def scaling_phase(ds, o_summary: dict, dev: torch.device,
+                  phase_mark) -> list:
+    """Phase 16: halo_overhead chip, scaling_bench halo and cached at world
+    1 and pairs_scale_bench on the 100k graph; returns the kernel rows at
+    the new shapes."""
+    calls, counts = {}, collections.Counter()
+    # -------- halo_overhead chip: the dist step against the local oracle
+    t0 = time.perf_counter()
+    first = {}
+    with kernel_calls("halo_overhead chip", calls, counts):
+        (row,) = halo_overhead.run_chip(ds, dev, b_loc=HALO_B_LOC,
+                                        first_losses=first)
+    log(f"[scaling] halo_overhead chip {json.dumps(row)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    log(f"[scaling] halo_overhead chip overhead {row['halo_overhead_ms']} ms "
+        f"({row['halo_overhead_pct']}%) against phase 11 (o)'s patched "
+        f"exchange {o_summary['halo_overhead_ms']:.6f} ms "
+        f"({o_summary['halo_overhead_pct']:.3f}%): (o) swaps only the "
+        f"exchange for a gather of the pretransformed rows, the module's "
+        f"oracle is the JAX tool's program over the raw 602-wide rows")
+    rel = abs(first["local_oracle"] - first["dist_step"]) / abs(
+        first["dist_step"])
+    log(f"[scaling] first losses: dist step {first['dist_step']!r}, local "
+        f"oracle {first['local_oracle']!r}, relative {rel:.3e} (bar "
+        f"{BF16_LOSS_RTOL})")
+    assert rel <= BF16_LOSS_RTOL, first
+    want = halo_chip_launches(halo_overhead.REPS)
+    assert row["launches"] == want, (row["launches"], want)
+    for name in ("dist_step_ms", "local_oracle_ms"):
+        assert np.isfinite(row[name]) and row[name] > 0, row
+    phase_mark("phase 16: halo_overhead chip")
+
+    # -------- scaling_bench at its defaults, world 1
+    for pipeline in ("halo", "cached"):
+        t0 = time.perf_counter()
+        with kernel_calls(f"scaling_bench {pipeline}", calls, counts):
+            record = scaling_bench.run(ds, dev, pipeline, edges=EDGES,
+                                       log=log)
+        log(f"[scaling] scaling_bench {pipeline} {json.dumps(record)} "
+            f"({time.perf_counter() - t0:.3f} s)")
+        (res,) = record["results"]
+        assert res["devices"] == 1 and res["edges_per_sec"] > 0, res
+        steps = record["workload"]["steps"]
+        b_loc = record["workload"]["b_loc"]
+        t_steps = min(steps, -(-len(ds.train_nodes) // b_loc))
+        want = scaling_launches(pipeline, steps, t_steps)
+        assert res["launches"] == want, (pipeline, res["launches"], want)
+        log(f"[scaling] scaling_bench {pipeline} world 1: "
+            f"{res['edges_per_sec']} edges/s, {res['step_ms']} ms a step; "
+            f"launches {res['launches']} as predicted")
+    phase_mark("phase 16: scaling_bench halo, cached")
+
+    # -------- pairs_scale_bench with the exact-negative budget at its
+    # default
+    with exact_negatives_budget():
+        cores = os.cpu_count() or 1
+        est = (len(ds.train_nodes) * len(ds.graph.indices)
+               / (300e6 * cores))
+        log(f"[scaling] pairs_scale_bench: {cores} cores; the auto rule's "
+            f"estimate {est:.3f} s against the budget "
+            f"{os.environ.get('GS_EXACT_NEG_BUDGET_S', '180')} s")
+        t0 = time.perf_counter()
+        pairs = pairs_scale_bench.run(ds, EDGES, log=log)
+    log(f"[scaling] pairs_scale_bench {json.dumps(pairs)} "
+        f"({time.perf_counter() - t0:.3f} s)")
+    assert pairs["auto_rule"]["decision_here"] == "exact", pairs
+    assert pairs["first_epoch_steps"] == -(-len(ds.train_nodes)
+                                           // pairs_scale_bench.B), pairs
+    phase_mark("phase 16: pairs_scale_bench")
+
+    # -------- a kernel row at each shape the three runs launched, on the
+    # arguments of its first launch there, against the plain version
+    log(f"[scaling] launches by (kernel, shapes): {dict(counts)}")
+    rows = []
+    for key in list(calls):
+        rec = calls.pop(key)
+        rows.append(phase16_row(key, rec, counts[key]))
+        del rec
+        torch.cuda.empty_cache()
+    phase_mark("phase 16: kernel rows")
+    return rows
+
+
+def call_key(kernel: str, *args) -> tuple:
+    """A launch's key: the kernel, and each tensor argument's shape, row
+    stride and dtype (``scatter_rows``: also the rows it adds into)."""
+    return (kernel,) + tuple(
+        (tuple(a.shape), a.stride(0) if a.dim() else 0, str(a.dtype)[6:])
+        if isinstance(a, torch.Tensor) else a for a in args)
+
+
+@contextlib.contextmanager
+def kernel_calls(tag: str, calls: dict, counts: collections.Counter):
+    """Every launch of gather_rows, gather_mean (gather_max) and
+    scatter_rows inside the block, at the kernel wrappers: the launches at
+    each :func:`call_key` (``counts``) and the arguments of the first
+    launch there, with ``tag`` (``calls``)."""
+    def recorded(kernel, fn):
+        def launch(*args):
+            key = call_key(kernel, *args)
+            counts[key] += 1
+            calls.setdefault(key, {"tag": tag, "args": tuple(
+                a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args)})
+            return fn(*args)
+        return launch
+
+    launch_agg = agg._launch
+    with patched(gather, gather_rows_kernel=recorded(
+                     "gather_rows", gather.gather_rows_kernel)), \
+            patched(agg, _launch=lambda name, symbol, *args: recorded(
+                name, lambda *a: launch_agg(name, symbol, *a))(*args)), \
+            patched(scatter, scatter_rows_kernel=recorded(
+                "scatter_rows", scatter.scatter_rows_kernel)):
+        yield
+
+
+def phase16_row(key: tuple, rec: dict, launches: int) -> dict:
+    """The kernel row of one phase-16 launch shape, timed on a cold L2."""
+    kernel, tag, args = key[0], rec["tag"], rec["args"]
+    first, idx = args[0], args[1]
+    dtype = "bf16" if first.dtype == torch.bfloat16 else "f32"
+    stride = ("" if first.stride(0) == first.shape[1]
+              else f" stride {first.stride(0)}")
+    if kernel == "gather_rows":
+        return gather_row(f"{tag}, {idx.shape[0]} ids over "
+                          f"{list(first.shape)}{stride}, {dtype}", *args,
+                          launches, cold=True)
+    if kernel == "scatter_rows":
+        return scatter_row(f"{tag}, {first.shape[0]} rows into "
+                           f"[{args[2]}, {first.shape[1]}], {dtype}", *args,
+                           launches, cold=True)
+    return kernel_row(kernel, f"{tag}, idx {list(idx.shape)} over "
+                      f"{list(first.shape)}{stride}, {dtype}", *args,
+                      launches, cold=True)
+
+
 # ------------------------------------------------------------ config 5
 
 # phase 14: BASELINE.json's config 5 (graphsage_torch.bigscale_bench's
@@ -4438,7 +4650,8 @@ def run(dev: torch.device) -> int:
     resume_phase(dev)
     phase_done("phase 10 (checkpoints and resume)")
 
-    rows.extend(dist_phase(ds, bf16_runs, dev, phase_done))
+    dist_rows, dist_summaries = dist_phase(ds, bf16_runs, dev, phase_done)
+    rows.extend(dist_rows)
     phase_done("phase 11 (distribution)")
 
     rows.extend(tp_phase(ds, dev, phase_done))
@@ -4449,6 +4662,9 @@ def run(dev: torch.device) -> int:
 
     rows.extend(anatomy_phase(ds, dev, phase_done))
     phase_done("phase 15 (anatomy tools)")
+
+    rows.extend(scaling_phase(ds, dist_summaries["o"], dev, phase_done))
+    phase_done("phase 16 (scaling tools)")
 
     del ds
     rows.extend(config5_phase(dev, phase_done))

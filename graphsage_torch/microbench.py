@@ -46,6 +46,9 @@ from graphsage_torch.ops import gather, sddmm
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # H100 SXM bfloat16 tensor cores, dense
+L2_BYTES = 50 * 2**20            # H100 SXM L2 cache
+# the kernel of l2_evictor's write, which the cold device times leave out
+EVICT_KERNEL = "bitwise_not"
 N, H = 100_000, 128
 U, S = 45056, 11
 FEATS, FANOUT, PER_OCCURRENCE = 602, 10, 5632
@@ -66,13 +69,41 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
+def l2_evictor():
+    """A callable that evicts the card's L2 cache: one kernel rewriting a
+    buffer of twice the L2's size (an in-place ``bitwise_not``)."""
+    buf = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device="cuda")
+    return buf.bitwise_not_
+
+
+def cold_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean device time of one fn() on a cold L2: each call comes right
+    after an eviction (:func:`l2_evictor`) and has its own pair of CUDA
+    events, so the eviction is not timed."""
+    evict = l2_evictor()
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in events:
+        evict()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
+
+
+def device_ms(fn, kernel: str | None = None, reps: int = 20,
+              exclude: str | None = None) -> float:
     """Device time per call of fn() (warm), from torch.profiler over reps
     calls: for each kernel whose name holds ``kernel`` (every kernel when
-    None), its self device time per recorded launch times its launches a
-    call.  Per recorded launch, because the profiler can drop records on
-    the card.  Where it records none, a CUDA graph of reps calls is
-    replayed and timed with CUDA events."""
+    None) and not ``exclude``, its self device time per recorded launch
+    times its launches a call.  Per recorded launch, because the profiler
+    can drop records on the card.  Where it records none, a CUDA graph of
+    reps calls is replayed and timed with CUDA events (not with
+    ``exclude``: the graph's time would hold the excluded kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,10 +117,13 @@ def device_ms(fn, kernel: str | None = None, reps: int = 20) -> float:
                 for evt in prof.key_averages()
                 if evt.device_type == DeviceType.CUDA
                 and evt.self_device_time_total
-                and (kernel is None or kernel in evt.key)]
+                and (kernel is None or kernel in evt.key)
+                and (exclude is None or exclude not in evt.key)]
     if recorded:
         return sum(t / n * max(1, round(n / reps))
                    for t, n in recorded) / 1e3
+    if exclude is not None:
+        raise RuntimeError("the profiler recorded no device time")
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -127,14 +161,25 @@ def host_us(fn, reps: int = 20, rounds: int = 5) -> float:
     return best / reps * 1e6
 
 
-def times(fn, kernel: str | None, library=None, reps: int = 50) -> dict:
+def times(fn, kernel: str | None, library=None, reps: int = 50,
+          cold: bool = False) -> dict:
     """ms, device_ms and host_us of fn (kernel: its kernel's name), and
-    library_ms and library_device_ms of the library call, if any."""
-    row = {"ms": cuda_ms(fn, reps=reps), "device_ms": device_ms(fn, kernel),
+    library_ms and library_device_ms of the library call, if any.  With
+    ``cold`` each timed call runs on a cold L2, as on a path that rewrites
+    its tables between launches: ``ms`` from :func:`cold_ms`, the device
+    times with an eviction before each call and its kernel left out."""
+    timer, exclude, profiled = cuda_ms, None, lambda f: f
+    if cold:
+        evict = l2_evictor()
+        timer, exclude = cold_ms, EVICT_KERNEL
+        profiled = lambda f: lambda: (evict(), f())
+    row = {"ms": timer(fn, reps=reps),
+           "device_ms": device_ms(profiled(fn), kernel, exclude=exclude),
            "host_us": host_us(fn)}
     if library is not None:
-        row["library_ms"] = cuda_ms(library, reps=reps)
-        row["library_device_ms"] = device_ms(library)
+        row["library_ms"] = timer(library, reps=reps)
+        row["library_device_ms"] = device_ms(profiled(library),
+                                             exclude=exclude)
     return row
 
 

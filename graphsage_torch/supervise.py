@@ -37,6 +37,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,13 +46,16 @@ import time
 def _newest_checkpoint(ckpt_dir: str, run_name: str) -> str | None:
     """Newest checkpoint of this run: a shared checkpoint_dir may hold
     other runs' checkpoints, and resuming another run's params and RNG
-    would silently continue the wrong model.  The checkpoint writer's
-    temporary files do not start with the prefix."""
+    would silently continue the wrong model.  The whole basename must be
+    the CLI's ``model_best_<name>_ep<E>_<f1>``: a prefix match would take
+    run ``<name>_v2``'s checkpoints too.  The checkpoint writer's
+    temporary files (``.tmp-...``) do not match."""
     if not os.path.isdir(ckpt_dir):
         return None
-    prefix = f"model_best_{run_name}_"
+    pattern = re.compile(re.escape(f"model_best_{run_name}")
+                         + r"_ep\d+_\d+\.\d+")
     entries = [os.path.join(ckpt_dir, e) for e in os.listdir(ckpt_dir)
-               if e.startswith(prefix)]
+               if pattern.fullmatch(e)]
     if not entries:
         return None
     return max(entries, key=os.path.getmtime)

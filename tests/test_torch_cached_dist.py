@@ -156,7 +156,7 @@ def _jax_epoch(name, world, tables, jstack, jpairs, params, fanout, key):
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
-def epochs(request, data, tmp_path_factory):
+def epochs(request, data):
     world = request.param
     ds, jds, pad = data
     tables = _tables(ds, pad, world)
@@ -184,7 +184,7 @@ def epochs(request, data, tmp_path_factory):
     for name, labels in (("tail", stack[1]), ("tail_junk", junk)):
         jobs.append((name, "cached_epoch", {
             **jobs[0][2], "stack": [stack[0], labels, stack[2]]}))
-    out = run_ranks(jobs, world, tmp_path_factory.mktemp(f"cdist{world}"))
+    out = run_ranks(jobs, world)
     return dict(world=world, tables=tables, refs=refs, out=out, key=key,
                 jobs=dict((n, p) for n, _, p in jobs))
 

@@ -35,10 +35,9 @@ from tests.torch_dist_worker import run_ranks
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
-def ranks(request, tmp_path_factory):
+def ranks(request):
     world = request.param
-    out = run_ranks([("comm", "comm", {"seed": 5})], world,
-                    tmp_path_factory.mktemp(f"comm{world}"))
+    out = run_ranks([("comm", "comm", {"seed": 5})], world)
     return world, [r["comm"] for r in out]
 
 

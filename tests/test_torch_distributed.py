@@ -132,7 +132,7 @@ def _jax_step(name, world, jds, params, jdb, jpairs):
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
-def stepped(request, data, tmp_path_factory):
+def stepped(request, data):
     """Every step of STEPS, and the tail-mask pair, on P ranks."""
     world = request.param
     ds, jds = data
@@ -183,7 +183,7 @@ def stepped(request, data, tmp_path_factory):
         jobs.append((f"forward_{agg}", "dist_forward", dict(
             cfg=dataclasses.asdict(jcfg), params=_params(jcfg), feats=feats,
             batch=_batch_payload(db))))
-    out = run_ranks(jobs, world, tmp_path_factory.mktemp(f"dist{world}"))
+    out = run_ranks(jobs, world)
     return dict(world=world, db=db, jdb=jdb, unsup=unsup, out=out,
                 jax_inputs=jax_inputs)
 

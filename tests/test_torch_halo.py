@@ -87,7 +87,7 @@ def _jax_halo(world, feats_sh, plan, cot, dtype):
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
-def exchanged(request, tmp_path_factory):
+def exchanged(request):
     world = request.param
     rng = np.random.RandomState(10 + world)
     feats = rng.randn(NUM_NODES, D).astype(np.float32)
@@ -107,7 +107,7 @@ def exchanged(request, tmp_path_factory):
                                 "requests", "addr_owner", "addr_slot",
                                 "addr_is_local", "addr_local")}})
             for name, c in cases.items()]
-    out = run_ranks(jobs, world, tmp_path_factory.mktemp(f"halo{world}"))
+    out = run_ranks(jobs, world)
     return world, cases, out, feats
 
 

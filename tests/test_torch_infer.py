@@ -244,7 +244,7 @@ def _sharded_model(name):
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=lambda p: f"P{p}")
-def sharded(request, tmp_path_factory):
+def sharded(request):
     """full_graph_embeddings_sharded on P gloo ranks (one process each,
     tests/torch_dist_worker.py), over 61 nodes (not a multiple of P)."""
     import dataclasses
@@ -261,7 +261,7 @@ def sharded(request, tmp_path_factory):
             cfg=dataclasses.asdict(cfg), params=params, feats=feats,
             neighbors=pad.neighbors, degrees=pad.degrees,
             lstm_hybrid=hybrid)))
-    out = run_ranks(jobs, world, tmp_path_factory.mktemp(f"infer{world}"))
+    out = run_ranks(jobs, world)
     return world, g, feats, out
 
 
@@ -383,9 +383,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.profile_bigscale, "
         "graphsage_torch.refresh_locality, graphsage_torch.train_1m_e2e, "
         "graphsage_torch.step_anatomy, graphsage_torch.profile_cached, "
-        "graphsage_torch.profile_unsup\n"
+        "graphsage_torch.profile_unsup, graphsage_torch.halo_overhead, "
+        "graphsage_torch.scaling_bench, graphsage_torch.pairs_scale_bench, "
+        "graphsage_torch.parallel.ranks\n"
         "import chip_smoke, tests.torch_dist_worker\n"
-        "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu') "
+        "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu', 'tools') "
         "for m, v in sys.modules.items() if v is not None)\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -174,7 +174,7 @@ def cases():
 
 
 @pytest.fixture(scope="module")
-def ranks(cases, tmp_path_factory):
+def ranks(cases):
     """{world: [rank results]}: the steps of that world's meshes, then the
     make_mesh refusals (P = 2) and the dry run."""
     _, jobs = cases
@@ -184,7 +184,7 @@ def ranks(cases, tmp_path_factory):
     for world, steps in jobs.items():
         extra = [errors] if world == 2 else []
         out[world] = run_ranks(steps + extra + [("dryrun", "dryrun", {})],
-                               world, tmp_path_factory.mktemp(f"mesh{world}"))
+                               world)
     return out
 
 

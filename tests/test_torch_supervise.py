@@ -104,6 +104,23 @@ def test_newest_checkpoint_scoped_by_run_name(tmp_path):
     assert _newest_checkpoint(str(tmp_path / "absent"), "a") is None
 
 
+def test_newest_checkpoint_ignores_runs_that_share_the_prefix(tmp_path):
+    """Runs ``a_v2`` and ``a_b`` write ``model_best_a_...`` names too; run
+    ``a`` resumes its own checkpoint even when theirs are newer."""
+    ck = tmp_path / "ck"
+    ck.mkdir()
+    a = ck / "model_best_a_ep1_0.5000"
+    a_v2 = ck / "model_best_a_v2_ep7_0.9000"
+    a_b = ck / "model_best_a_b_ep3_0.7000"
+    for path, t in ((a, 1000), (a_v2, 2000), (a_b, 3000)):
+        path.write_bytes(b"")
+        os.utime(path, (t, t))
+    assert _newest_checkpoint(str(ck), "a") == str(a)
+    assert _newest_checkpoint(str(ck), "a_v2") == str(a_v2)
+    assert _newest_checkpoint(str(ck), "a_b") == str(a_b)
+    assert _newest_checkpoint(str(ck), "a_v") is None
+
+
 def test_wedge_before_first_checkpoint_preserves_user_resume(tmp_path):
     """A child that wedges before writing any checkpoint is relaunched
     with the operator's own --resume kept."""

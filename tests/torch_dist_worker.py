@@ -1,13 +1,13 @@
 """Rank bodies for the port's distributed tests, and the launchers that
 run them (``run_ranks``; ``run_cli_ranks`` for the CLI under torchrun).
 
-Each rank is its own process, started as ``python tests/torch_dist_worker.py
-JOBS RANK WORLD RENDEZVOUS OUT`` with the repository on its path.  It joins
-a gloo group over a ``file://`` rendezvous in the test's temporary
-directory (several test files run at once: no fixed port), runs every job
-of the pickled list, and pickles {job name: result} to OUT.  The module
-imports no JAX and nothing of the JAX package: the parent test computes the
-JAX side and compares.
+Each rank is its own process, started by the package's rank launcher
+(``graphsage_torch.parallel.ranks``) with the repository on its path and
+one thread.  It joins a gloo group over a ``file://`` rendezvous in a
+temporary directory of its own (several test files run at once: no fixed
+port), runs every job of the pickled list (``run_jobs``), and hands back
+{job name: result}.  The module imports no JAX and nothing of the JAX
+package: the parent test computes the JAX side and compares.
 
 Jobs are (name, task, payload) with numpy payloads; the tasks:
 
@@ -31,16 +31,12 @@ Jobs are (name, task, payload) with numpy payloads; the tasks:
 
 from __future__ import annotations
 
-import datetime
 import os
-import pickle
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if ROOT not in sys.path:
@@ -51,7 +47,7 @@ from graphsage_torch.convert import params_to_numpy  # noqa: E402
 from graphsage_torch.data.graph import PaddedAdjacency  # noqa: E402
 from graphsage_torch.infer import full_graph_embeddings_sharded  # noqa: E402
 from graphsage_torch.models import Frontier, GraphSageConfig  # noqa: E402
-from graphsage_torch.parallel import comm, mesh  # noqa: E402
+from graphsage_torch.parallel import comm, mesh, ranks  # noqa: E402
 from graphsage_torch.parallel.halo import make_halo_gather  # noqa: E402
 from graphsage_torch.sampler.device import HopSampler  # noqa: E402
 from graphsage_torch.train.cached import cached_epoch_reuse  # noqa: E402
@@ -255,69 +251,20 @@ TASKS = {"comm": task_comm, "halo": task_halo, "dist_step": task_dist_step,
          "dryrun": task_dryrun}
 
 
-def main(argv) -> int:
-    jobs_path, rank, world, rendezvous, out_path = argv
-    rank, world = int(rank), int(world)
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{rendezvous}",
-                            rank=rank, world_size=world,
-                            timeout=datetime.timedelta(seconds=60))
-    try:
-        with open(jobs_path, "rb") as f:
-            jobs = pickle.load(f)
-        results = {name: TASKS[task](payload, rank, world)
-                   for name, task, payload in jobs}
-    finally:
-        dist.destroy_process_group()
-    with open(out_path, "wb") as f:
-        pickle.dump(results, f)
-    return 0
+def run_jobs(jobs: list, rank: int, world: int) -> dict:
+    """A rank's body (``graphsage_torch.parallel.ranks``): every job of the
+    list, as {job name: result}."""
+    return {name: TASKS[task](payload, rank, world)
+            for name, task, payload in jobs}
 
 
-def run_ranks(jobs: list, world: int, tmp_dir, timeout_s: float = 240):
-    """Run ``jobs`` on ``world`` gloo ranks, one process each; returns the
-    ranks' {name: result} dicts, rank 0 first.  A rank that fails or
-    outlives ``timeout_s`` fails the caller with the ranks' output."""
-    tmp_dir = str(tmp_dir)
-    tag = f"{world}_{time.monotonic_ns()}"
-    jobs_path = os.path.join(tmp_dir, f"jobs_{tag}.pkl")
-    with open(jobs_path, "wb") as f:
-        pickle.dump(jobs, f)
-    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
-    procs, logs, outs = [], [], []
-    for rank in range(world):
-        out = os.path.join(tmp_dir, f"out_{tag}_{rank}.pkl")
-        log = open(os.path.join(tmp_dir, f"log_{tag}_{rank}.txt"), "w+")
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), jobs_path, str(rank),
-             str(world), os.path.join(tmp_dir, f"rdzv_{tag}"), out],
-            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
-        logs.append(log)
-        outs.append(out)
-    deadline = time.monotonic() + timeout_s
-    try:
-        for proc in procs:
-            proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
-    text = []
-    for rank, log in enumerate(logs):
-        log.seek(0)
-        text.append(f"--- rank {rank} (rc {procs[rank].returncode})\n"
-                    + log.read()[-3000:])
-        log.close()
-    if any(proc.returncode != 0 for proc in procs):
-        raise AssertionError("a rank failed:\n" + "\n".join(text))
-    results = []
-    for out in outs:
-        with open(out, "rb") as f:
-            results.append(pickle.load(f))
-    return results
+def run_ranks(jobs: list, world: int, timeout_s: float = 240):
+    """Run ``jobs`` on ``world`` gloo ranks, one process each, one thread
+    each (``graphsage_torch.parallel.ranks.run_ranks``); returns the ranks'
+    {name: result} dicts, rank 0 first.  A rank that fails or outlives
+    ``timeout_s`` fails the caller with the ranks' output."""
+    return ranks.run_ranks("tests.torch_dist_worker:run_jobs", jobs, world,
+                           threads=1, timeout_s=timeout_s)
 
 
 def run_cli_ranks(args: list, world: int, cwd, timeout_s: float = 240):
@@ -332,6 +279,3 @@ def run_cli_ranks(args: list, world: int, cwd, timeout_s: float = 240):
     return subprocess.run(cmd, cwd=str(cwd), env=env, capture_output=True,
                           text=True, timeout=timeout_s)
 
-
-if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
