@@ -352,6 +352,31 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    launches at that shape, all timed on a cold L2 (the paths rewrite
    their tables between launches, and the smaller working sets would
    otherwise stay in the 50 MB L2 between timed launches).
+17. The ports of the JAX system's quality and ablation tools, in this
+   process, after phase 16, on stand-ins of Cora's shape (2,708 nodes,
+   5,429 edges drawn, 1,433 features, 7 classes) and Pubmed's (19,717,
+   44,338, 500, 3) from synthetic_power_law(seed 824), 40% of their labels
+   redrawn (LABEL_NOISE) so that F1 stays below 1, exact negatives at
+   their default budget; every F1 printed is a stand-in's.  The tools'
+   widths (2 layers, hidden 128, the full feature width), batches and
+   protocols; cut: max_seed_study's epochs, 25 of 50 (STUDY_EPOCHS):
+   - validate_cached in float32 and bfloat16 (b_sz 512, 50 epochs);
+   - staleness_quality at k 1, 2, 4, 8 on both stand-ins (50 epochs);
+   - max_seed_study over its five seeds (compact MAX, b_sz 20);
+   - prefetch_bench sup and unsup at depths 0 and 2 (b_sz 128, a warm and
+     3 timed epochs), then once more under deterministic algorithms,
+     where both depths must end with bit-equal params;
+   - profile_dense at its defaults (cap 32, b 512, 50 steps).
+   Every best val F1 lies below 1 and above the floor halfway between the
+   most common val label's share and the share of val labels left as the
+   features say (standin); validate_cached's float32 and bfloat16 best
+   val F1s within DTYPE_F1_GAP.  Each run's launches, counted from 0,
+   equal those predicted from the code (validate_launches,
+   trainer_launches, compact_launches over the batches the Trainers
+   built, profile_dense's one gather_mean a layer a step).  Kernel rows
+   as in phase 16, now also for gather_max, its gather_max_bwd (two rows:
+   the tie split and the whole backward) and pair_scores: every launch
+   shape of the five runs, on a cold L2.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -391,10 +416,12 @@ import torch
 import torch.nn.functional as F
 
 from graphsage_torch import (bench, bigscale_bench, cli, halo_overhead,
-                             infer, infer_bench, microbench,
-                             pairs_scale_bench, profile_bigscale,
-                             profile_cached, profile_unsup, refresh_locality,
-                             scaling_bench, step_anatomy, train_1m_e2e)
+                             infer, infer_bench, max_seed_study, microbench,
+                             pairs_scale_bench, prefetch_bench,
+                             profile_bigscale, profile_cached, profile_dense,
+                             profile_unsup, refresh_locality, scaling_bench,
+                             staleness_quality, step_anatomy, train_1m_e2e,
+                             validate_cached)
 from graphsage_torch.convert import flatten_params, params_to_numpy
 from graphsage_torch.data import (CSRGraph, PaddedAdjacency,
                                   synthetic_power_law)
@@ -1128,9 +1155,10 @@ def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
 # ------------------------------------------------------------ pair scores
 
 def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
-               launches: int) -> dict:
+               launches: int, cold: bool = False) -> dict:
     """The pair-score kernel against its plain version (forward in float32
-    and bfloat16, gradient through PairScores), and its kernel row."""
+    and bfloat16, gradient through PairScores), and its kernel row (with
+    ``cold``, timed on a cold L2)."""
     got = sddmm.pair_scores_kernel(emb, target_rows)
     torch.cuda.synchronize()
     err = check_close(f"pair_scores {label}", got,
@@ -1173,10 +1201,11 @@ def scores_row(label: str, emb: torch.Tensor, target_rows: torch.Tensor,
         "launches": launches,
         "max_abs_err": err,
         **times(lambda: sddmm.pair_scores_kernel(emb, target_rows),
-                "pair_scores_kernel", library=library, reps=100),
-        "plain_ms": cuda_ms(lambda: sddmm.dense_pair_scores(emb,
-                                                            target_rows),
-                            reps=50),
+                "pair_scores_kernel", library=library,
+                reps=20 if cold else 100, cold=cold),
+        "plain_ms": (cold_ms if cold else cuda_ms)(
+            lambda: sddmm.dense_pair_scores(emb, target_rows),
+            reps=20 if cold else 50),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
@@ -1378,7 +1407,8 @@ def max_backward_composition(g: torch.Tensor, embed: torch.Tensor,
 
 
 def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
-                      mask: torch.Tensor, launches: int) -> list:
+                      mask: torch.Tensor, launches: int,
+                      cold: bool = False) -> list:
     """gather_max's backward at one shape, two rows.  The gather_max_bwd
     kernel (the tie split, contrib [U*S, D]) against max_tie_split_plain
     on the card and on the CPU, bit for bit; its bound the bytes it must
@@ -1390,7 +1420,10 @@ def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
     referenced, the [M, D] output) and, in bfloat16, the longest row's
     chain of tied adds at ADD_NS each; its ``earlier`` the composition the
     kernel replaced (max_backward_composition).  No one PyTorch call
-    computes either: library_ms is null."""
+    computes either: library_ms is null.  With ``cold`` the ms and device
+    ms of both rows, their plain versions' and the composition's ms are
+    taken on a cold L2 (the composition's and the scatter's device ms stay
+    warm)."""
     g = torch.randn(idx.shape[0], embed.shape[1],
                     generator=torch.Generator().manual_seed(11)
                     ).to(embed.device, embed.dtype)
@@ -1399,6 +1432,7 @@ def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
     (u, s), (m, d) = idx.shape, embed.shape
     es = embed.element_size()
     bf16 = embed.dtype == torch.bfloat16
+    timer = cold_ms if cold else cuda_ms
 
     # -------- the tie split alone
     split = lambda: agg.gather_max_bwd_kernel(g, embed, idx, mask, out)
@@ -1422,8 +1456,8 @@ def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
         "replaces": REPLACES["gather_max_bwd"],
         "launches": launches,
         "max_abs_err": 0.0,
-        **times(split, "gather_max_bwd_kernel", reps=20),
-        "plain_ms": cuda_ms(lambda: agg.max_tie_split_plain(
+        **times(split, "gather_max_bwd_kernel", reps=20, cold=cold),
+        "plain_ms": timer(lambda: agg.max_tie_split_plain(
             g, embed, idx, mask, out), reps=20),
         "bound_ms": bound,
         "bound_by": bound_by,
@@ -1469,8 +1503,8 @@ def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
         "launches": launches,
         "max_abs_err": err,
         **times(lambda: agg.max_aggregate_backward(g, embed, idx, mask, out),
-                None, reps=20),
-        "plain_ms": cuda_ms(lambda: torch.autograd.grad(
+                None, reps=20, cold=cold),
+        "plain_ms": timer(lambda: torch.autograd.grad(
             plain_out, leaf, g, retain_graph=True), reps=20),
         "bound_ms": max(bytes_ms, chain_ms),
         "bound_by": "bytes" if bytes_ms >= chain_ms else "operations",
@@ -1480,7 +1514,7 @@ def max_backward_rows(label: str, embed: torch.Tensor, idx: torch.Tensor,
         "chain_ms": chain_ms,
     }
     composed = lambda: max_backward_composition(g, embed, idx, mask, out)
-    whole["earlier_ms"] = cuda_ms(composed, reps=20)
+    whole["earlier_ms"] = timer(composed, reps=20)
     whole["earlier_device_ms"] = device_ms(composed)
     # the scatter alone: what the whole backward adds to the tie split
     whole["scatter_device_ms"] = device_ms(lambda: scatter.scatter_rows(
@@ -4193,12 +4227,7 @@ def scaling_phase(ds, o_summary: dict, dev: torch.device,
     # -------- a kernel row at each shape the three runs launched, on the
     # arguments of its first launch there, against the plain version
     log(f"[scaling] launches by (kernel, shapes): {dict(counts)}")
-    rows = []
-    for key in list(calls):
-        rec = calls.pop(key)
-        rows.append(phase16_row(key, rec, counts[key]))
-        del rec
-        torch.cuda.empty_cache()
+    rows = recorded_rows(calls, counts)
     phase_mark("phase 16: kernel rows")
     return rows
 
@@ -4213,10 +4242,11 @@ def call_key(kernel: str, *args) -> tuple:
 
 @contextlib.contextmanager
 def kernel_calls(tag: str, calls: dict, counts: collections.Counter):
-    """Every launch of gather_rows, gather_mean (gather_max) and
-    scatter_rows inside the block, at the kernel wrappers: the launches at
-    each :func:`call_key` (``counts``) and the arguments of the first
-    launch there, with ``tag`` (``calls``)."""
+    """Every launch of gather_rows, gather_mean (gather_max),
+    gather_max_bwd, pair_scores and scatter_rows inside the block, at the
+    kernel wrappers: the launches at each :func:`call_key` (``counts``)
+    and the arguments of the first launch there, with ``tag``
+    (``calls``)."""
     def recorded(kernel, fn):
         def launch(*args):
             key = call_key(kernel, *args)
@@ -4231,30 +4261,295 @@ def kernel_calls(tag: str, calls: dict, counts: collections.Counter):
     with patched(gather, gather_rows_kernel=recorded(
                      "gather_rows", gather.gather_rows_kernel)), \
             patched(agg, _launch=lambda name, symbol, *args: recorded(
-                name, lambda *a: launch_agg(name, symbol, *a))(*args)), \
+                name, lambda *a: launch_agg(name, symbol, *a))(*args),
+                    gather_max_bwd_kernel=recorded(
+                        "gather_max_bwd", agg.gather_max_bwd_kernel)), \
+            patched(sddmm, pair_scores_kernel=recorded(
+                "pair_scores", sddmm.pair_scores_kernel)), \
             patched(scatter, scatter_rows_kernel=recorded(
                 "scatter_rows", scatter.scatter_rows_kernel)):
         yield
 
 
-def phase16_row(key: tuple, rec: dict, launches: int) -> dict:
-    """The kernel row of one phase-16 launch shape, timed on a cold L2."""
+def recorded_rows(calls: dict, counts: collections.Counter) -> list:
+    """The rows of every shape :func:`kernel_calls` recorded, each on the
+    arguments of its first launch there (freed once its rows are made)."""
+    rows = []
+    for key in list(calls):
+        rows.extend(shape_rows(key, calls.pop(key), counts[key]))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def shape_rows(key: tuple, rec: dict, launches: int) -> list:
+    """The kernel rows of one recorded launch shape (:func:`kernel_calls`),
+    timed on a cold L2: one row, or for gather_max_bwd two (the tie split
+    alone and the whole backward, :func:`max_backward_rows`)."""
     kernel, tag, args = key[0], rec["tag"], rec["args"]
+    if kernel == "gather_max_bwd":
+        args = args[1:4]          # (g, embed, idx, mask, out) -> the table
     first, idx = args[0], args[1]
     dtype = "bf16" if first.dtype == torch.bfloat16 else "f32"
     stride = ("" if first.stride(0) == first.shape[1]
               else f" stride {first.stride(0)}")
     if kernel == "gather_rows":
-        return gather_row(f"{tag}, {idx.shape[0]} ids over "
-                          f"{list(first.shape)}{stride}, {dtype}", *args,
-                          launches, cold=True)
+        return [gather_row(f"{tag}, {idx.shape[0]} ids over "
+                           f"{list(first.shape)}{stride}, {dtype}", *args,
+                           launches, cold=True)]
     if kernel == "scatter_rows":
-        return scatter_row(f"{tag}, {first.shape[0]} rows into "
-                           f"[{args[2]}, {first.shape[1]}], {dtype}", *args,
-                           launches, cold=True)
-    return kernel_row(kernel, f"{tag}, idx {list(idx.shape)} over "
-                      f"{list(first.shape)}{stride}, {dtype}", *args,
-                      launches, cold=True)
+        return [scatter_row(f"{tag}, {first.shape[0]} rows into "
+                            f"[{args[2]}, {first.shape[1]}], {dtype}", *args,
+                            launches, cold=True)]
+    if kernel == "pair_scores":
+        return [scores_row(f"{tag}, {idx.shape[0]} x {first.shape[0]}, H "
+                           f"{first.shape[1]}, {dtype}", first, idx,
+                           launches, cold=True)]
+    label = (f"{tag}, idx {list(idx.shape)} over {list(first.shape)}"
+             f"{stride}, {dtype}")
+    if kernel == "gather_max_bwd":
+        return max_backward_rows(label, *args, launches, cold=True)
+    return [kernel_row(kernel, label, *args, launches, cold=True)]
+
+
+# ------------------------------------------------------------ studies
+
+# phase 17: the ports of tools/validate_cached.py, staleness_quality.py,
+# max_seed_study.py, prefetch_bench.py and profile_dense.py on stand-ins
+# of Cora's and Pubmed's shapes: (nodes, edges drawn, features, classes)
+CORA_STANDIN = (2708, 5429, 1433, 7)
+PUBMED_STANDIN = (19717, 44338, 500, 3)
+# the cuts, of epochs only (the tools' widths, batches, seeds and
+# protocols stay): max_seed_study's 5 x 50 epochs take 0.57-0.78 s an
+# epoch on the card, so 25 epochs keep the phase near 100-150 s
+STUDY_EPOCHS = {"validate_cached": 50, "staleness_quality": 50,
+                "max_seed_study": 25}
+# synthetic_power_law's features are basis[label] plus noise, every class
+# separable, so a stand-in's F1 would read 1.0 whatever the pipeline did:
+# LABEL_NOISE of its labels are redrawn (RandomState(LABEL_SEED)), after
+# the features, so that the best a model can reach is the share of val
+# labels left as their features say (standin)
+LABEL_NOISE, LABEL_SEED = 0.4, 5
+# validate_cached's float32 and bfloat16 best val F1s stay within this of
+# each other (23 of the Cora stand-in's 451 val nodes)
+DTYPE_F1_GAP = 0.05
+
+
+def standin(shape: tuple) -> tuple:
+    """The stand-in of ``shape`` with LABEL_NOISE of its labels redrawn,
+    and the (floor, ceiling) of its val F1: the ceiling the share of val
+    nodes whose label is still their features' class (a model that
+    recovers the class from the features reaches it), the floor halfway
+    between the share of the most common val label (no use of the
+    features) and the ceiling."""
+    n, e, d, c = shape
+    ds = synthetic_power_law(n, e, num_feats=d, num_classes=c, seed=824)
+    rng = np.random.RandomState(LABEL_SEED)
+    labels = ds.labels.copy()
+    noisy = rng.rand(n) < LABEL_NOISE
+    labels[noisy] = rng.randint(0, c, int(noisy.sum()))
+    val = labels[ds.val_nodes]
+    ceiling = float(np.mean(val == ds.labels[ds.val_nodes]))
+    chance = float(np.bincount(val).max() / len(val))
+    return dataclasses.replace(ds, labels=labels), ((chance + ceiling) / 2,
+                                                    ceiling)
+
+
+def check_f1(tag: str, f1: float, bars: tuple) -> None:
+    """A stand-in's best val F1 is above the floor and below 1."""
+    assert bars[0] < f1 < 1, (tag, f1, bars)
+
+
+@contextlib.contextmanager
+def built_batches(into: list):
+    """Every compact batch the block's Trainers build (on their prefetch
+    threads too), appended to ``into``."""
+    build_batch = Trainer._build_train_batch
+
+    def record(self, nodes):
+        into.append(build_batch(self, nodes))
+        return into[-1]
+
+    with patched(Trainer, _build_train_batch=record):
+        yield
+
+
+def validate_launches(ds, rec: dict, b_sz: int, bf16: bool) -> dict:
+    """validate_cached's launches, from the code: an epoch's refresh and T
+    = len(train) // b_sz bfloat16-rule steps (:func:`big_launches`; in
+    float32 the backward is index_add_, no scatter_rows), then its
+    evaluations at the nodes themselves (:func:`evaluation_launches`)."""
+    epochs = len(rec["epochs"])
+    t = max(1, len(ds.train_nodes) // b_sz)
+    want = big_launches(ds.num_nodes, ds.feature_dim, b_sz, t, epochs,
+                        epochs, backward=bf16)
+    return added(want, evaluation_launches(ds, rec["epochs"], len))
+
+
+def evaluations(trainers: list) -> int:
+    """The embeddings the trainers' evaluations made: val each time, test
+    where val improved."""
+    return sum(len(tr.history) + sum("test_f1" in h for h in tr.history)
+               for tr in trainers)
+
+
+def counted(tag: str, calls: dict, counts: collections.Counter, fn):
+    """fn() with the counts set to 0 before and read after, its launches
+    recorded by shape (:func:`kernel_calls`): (result, launches, s)."""
+    agg.reset_launches()
+    t0 = time.perf_counter()
+    with kernel_calls(tag, calls, counts):
+        out = fn()
+    torch.cuda.synchronize()
+    return out, dict(agg.LAUNCHES), time.perf_counter() - t0
+
+
+def studies_phase(dev: torch.device, phase_mark) -> list:
+    """Phase 17: the five quality and ablation tools on the stand-ins,
+    exact negatives at their default budget (the tools' own runs); returns
+    the kernel rows at every shape they launched."""
+    calls, counts = {}, collections.Counter()
+    t0 = time.perf_counter()
+    (cora, cora_bars), (pubmed, pubmed_bars) = (standin(CORA_STANDIN),
+                                                standin(PUBMED_STANDIN))
+    log(f"[studies] stand-ins: cora {CORA_STANDIN}, pubmed "
+        f"{PUBMED_STANDIN} (nodes, edges drawn, features, classes), "
+        f"{LABEL_NOISE} of the labels redrawn, made in "
+        f"{time.perf_counter() - t0:.3f} s; every F1 below is a stand-in's; "
+        f"val F1 (floor, ceiling): cora {cora_bars}, pubmed {pubmed_bars}")
+    cfg = GraphSageConfig(num_layers=2, input_size=cora.feature_dim,
+                          out_size=HIDDEN)
+    with exact_negatives_budget():
+        # -------- validate_cached, float32 and bfloat16, b_sz 512
+        epochs = STUDY_EPOCHS["validate_cached"]
+        best = {}
+        for dtype in ("float32", "bfloat16"):
+            rec, launches, secs = counted(
+                f"validate_cached {dtype}", calls, counts,
+                lambda: validate_cached.run(
+                    cora, epochs=epochs, compute_dtype=dtype, device=dev,
+                    log=lambda line: log(f"[studies] validate_cached "
+                                         f"{dtype} {line}")))
+            losses = [e["loss"] for e in rec["epochs"]]
+            assert len(losses) == epochs and np.all(np.isfinite(losses))
+            check_f1(f"validate_cached {dtype}", rec["best_val_f1"],
+                     cora_bars)
+            best[dtype] = rec["best_val_f1"]
+            want = validate_launches(cora, rec, 512, dtype == "bfloat16")
+            assert launches == want, (dtype, launches, want)
+            log(f"[studies] validate_cached {dtype}: {epochs} epochs in "
+                f"{secs:.3f} s, loss {losses[0]:.6f} -> {losses[-1]:.6f}, "
+                f"stand-in best val F1 {rec['best_val_f1']:.4f} test "
+                f"{rec['test_f1_at_best_val']:.4f}; launches {launches} as "
+                f"predicted")
+        assert abs(best["float32"] - best["bfloat16"]) <= DTYPE_F1_GAP, best
+        log(f"[studies] validate_cached best val F1 float32 - bfloat16: "
+            f"{best['float32'] - best['bfloat16']:.4f} (bar {DTYPE_F1_GAP})")
+        phase_mark("phase 17: validate_cached")
+
+        # -------- staleness_quality, k in KS, both stand-ins
+        epochs = STUDY_EPOCHS["staleness_quality"]
+        trainers = []
+        out, launches, secs = counted(
+            "staleness_quality", calls, counts,
+            lambda: staleness_quality.study(
+                [("cora", cora, 512), ("pubmed", pubmed, 1024)],
+                epochs=epochs, device=dev, trainers=trainers,
+                log=lambda line: log(f"[studies] staleness_quality {line}")))
+        want = launch_counts()
+        for tr in trainers:
+            want = added(want, trainer_launches(tr, epochs))
+        assert launches == want, (launches, want)
+        for name, bars in (("cora", cora_bars), ("pubmed", pubmed_bars)):
+            assert [r["refresh_every"] for r in out[name]] == list(
+                staleness_quality.KS), out
+            for r in out[name]:
+                check_f1(f"staleness_quality {name} k {r['refresh_every']}",
+                         r["best_val_f1"], bars)
+        log(f"[studies] staleness_quality ({epochs} epochs, stand-in F1s) "
+            f"{json.dumps(out)} in {secs:.3f} s; launches {launches} as "
+            f"predicted")
+        phase_mark("phase 17: staleness_quality")
+
+        # -------- max_seed_study, compact MAX b_sz 20
+        epochs = STUDY_EPOCHS["max_seed_study"]
+        trainers, built = [], []
+        with built_batches(built):
+            out, launches, secs = counted(
+                "max_seed_study", calls, counts,
+                lambda: max_seed_study.run(
+                    cora, epochs=epochs, device=dev, trainers=trainers,
+                    log=lambda line: log(f"[studies] max_seed_study "
+                                         f"{line}")))
+        want = compact_launches(trainers[0].mcfg, "sup", built,
+                                evaluations(trainers))
+        assert launches == want, (launches, want)
+        assert len(out["seeds"]) == len(max_seed_study.SEEDS), out
+        for seed, rec in out["seeds"].items():
+            check_f1(f"max_seed_study seed {seed}", rec["best_val_f1"],
+                     cora_bars)
+        log(f"[studies] max_seed_study ({len(max_seed_study.SEEDS)} seeds, "
+            f"{epochs} epochs, stand-in F1s) {json.dumps(out)} in "
+            f"{secs:.3f} s, {len(built)} steps; launches {launches} as "
+            f"predicted")
+        phase_mark("phase 17: max_seed_study")
+
+        # -------- prefetch_bench, sup and unsup, b_sz 128, 3 timed epochs;
+        # then once more under deterministic algorithms (float32
+        # index_add_ in a fixed order), where both depths must end equal
+        def bit_equal(keep: dict) -> bool:
+            a, b = keep["params"][0], keep["params"][2]
+            return len(a) == len(b) > 0 and all(map(torch.equal, a, b))
+
+        for method in ("sup", "unsup"):
+            built, keep = [], {}
+            with built_batches(built):
+                res, launches, secs = counted(
+                    f"prefetch_bench {method}", calls, counts,
+                    lambda: prefetch_bench.run(cora, "cora",
+                                               learn_method=method,
+                                               device=dev, keep=keep))
+            want = compact_launches(cfg, method, built, 0)
+            assert launches == want, (method, launches, want)
+            check = {}
+            with deterministic():
+                prefetch_bench.run(cora, "cora", epochs=1,
+                                   learn_method=method, device=dev,
+                                   keep=check)
+            assert bit_equal(check), method
+            log(f"[studies] prefetch_bench {method} {json.dumps(res)} in "
+                f"{secs:.3f} s; seconds an epoch serial "
+                f"{keep['epoch_s'][0]:.6f} prefetch2 "
+                f"{keep['epoch_s'][2]:.6f}; {len(built)} batches, launches "
+                f"{launches} as predicted; under deterministic algorithms "
+                f"the depths end bit-equal (without: {bit_equal(keep)})")
+        phase_mark("phase 17: prefetch_bench")
+
+        # -------- profile_dense at its defaults
+        keep = {}
+        res, launches, secs = counted(
+            "profile_dense", calls, counts,
+            lambda: profile_dense.run(
+                cora, device=dev, keep=keep,
+                log=lambda line: log(f"[studies] profile_dense {line}")))
+        # each program twice (warm, timed) over its T steps (one loss a
+        # step): full_step and forward_only one gather_mean a layer a
+        # step, sampling_only none
+        want = launch_counts(gather_mean=2 * 2 * 2 * len(keep["full_step"]))
+        assert launches == want, (launches, want)
+        for name in profile_dense.PROGRAMS:
+            assert np.isfinite(res[name]) and res[name] > 0, res
+            assert torch.isfinite(keep[name]).all(), name
+        log(f"[studies] profile_dense {json.dumps(res)} ms a step in "
+            f"{secs:.3f} s; full_step losses {keep['full_step'][0]:.6f} -> "
+            f"{keep['full_step'][-1]:.6f}; launches {launches} as "
+            f"predicted")
+        phase_mark("phase 17: profile_dense")
+
+    # -------- a kernel row at each launch shape, against the plain version
+    log(f"[studies] launches by (kernel, shapes): {dict(counts)}")
+    rows = recorded_rows(calls, counts)
+    phase_mark("phase 17: kernel rows")
+    return rows
 
 
 # ------------------------------------------------------------ config 5
@@ -4310,26 +4605,40 @@ def big_launches(n: int, d: int, batch: int, steps: int, refreshes: int = 1,
                          pair_scores=t * int(block))
 
 
+def added(want: dict, more: dict) -> dict:
+    """``want`` with ``more``'s counts added, kernel by kernel."""
+    return {name: count + more.get(name, 0) for name, count in want.items()}
+
+
+def evaluation_launches(ds, history: list, rows) -> dict:
+    """The launches of the evaluations in ``history``: for each embedding
+    (val, and test where val F1 improved) a refresh and the layer-1
+    gathers of ``rows(nodes)`` targets (:func:`big_launches`)."""
+    want = launch_counts()
+    for entry in history:
+        for nodes, key in ((ds.val_nodes, "val_f1"),
+                           (ds.test_nodes, "test_f1")):
+            if key in entry:
+                want = added(want, big_launches(
+                    ds.num_nodes, ds.feature_dim, rows(nodes), 1,
+                    backward=False))
+    return want
+
+
 def trainer_launches(tr: CachedTrainer, epochs: int) -> dict:
     """What the counted CachedTrainer run launches: a refresh on epochs
-    0, k, 2k, ..., and one per evaluation embedding (val, and test where
-    val F1 improved), each with the layer-1 gathers at m1 = bucket(nodes)
-    x (K + 1); T steps an epoch; bfloat16 (scatter_rows a step on the
-    full-table branch)."""
-    n, d = tr.ds.num_nodes, tr.ds.feature_dim
+    0, k, 2k, ..., and the evaluations at m1 = bucket(nodes) x (K + 1)
+    (:func:`evaluation_launches`); T steps an epoch; in bfloat16
+    scatter_rows a step on the full-table branch (float32's backward is
+    index_add_)."""
     steps = -(-len(tr.ds.train_nodes) // tr.tcfg.b_sz)
     refreshes = sum(1 for ep in range(epochs)
                     if ep % tr.tcfg.refresh_every == 0)
-    want = big_launches(n, d, tr.tcfg.b_sz, steps, refreshes, epochs)
-    for entry in tr.history:
-        for nodes, key in ((tr.ds.val_nodes, "val_f1"),
-                           (tr.ds.test_nodes, "test_f1")):
-            if key in entry:
-                evals = big_launches(n, d, _bucket(len(nodes)), 1,
-                                     backward=False)
-                for name, count in evals.items():
-                    want[name] += count
-    return want
+    want = big_launches(tr.ds.num_nodes, tr.ds.feature_dim, tr.tcfg.b_sz,
+                        steps, refreshes, epochs,
+                        backward=tr.mcfg.compute_dtype == "bfloat16")
+    return added(want, evaluation_launches(
+        tr.ds, tr.history, lambda nodes: _bucket(len(nodes))))
 
 
 def big_gather_rows(recs: dict, rows_from: dict) -> list:
@@ -4665,6 +4974,9 @@ def run(dev: torch.device) -> int:
 
     rows.extend(scaling_phase(ds, dist_summaries["o"], dev, phase_done))
     phase_done("phase 16 (scaling tools)")
+
+    rows.extend(studies_phase(dev, phase_done))
+    phase_done("phase 17 (quality and ablation tools)")
 
     del ds
     rows.extend(config5_phase(dev, phase_done))

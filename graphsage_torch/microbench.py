@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 import time
 
 import numpy as np
@@ -96,34 +97,43 @@ def cold_ms(fn, reps: int, warmup: int = 3) -> float:
 
 
 def device_ms(fn, kernel: str | None = None, reps: int = 20,
-              exclude: str | None = None) -> float:
+              cold: bool = False, tries: int = 3) -> float:
     """Device time per call of fn() (warm), from torch.profiler over reps
     calls: for each kernel whose name holds ``kernel`` (every kernel when
-    None) and not ``exclude``, its self device time per recorded launch
-    times its launches a call.  Per recorded launch, because the profiler
-    can drop records on the card.  Where it records none, a CUDA graph of
-    reps calls is replayed and timed with CUDA events (not with
-    ``exclude``: the graph's time would hold the excluded kernels)."""
+    None), its self device time per recorded launch times its launches a
+    call.  Per recorded launch, because the profiler can drop records on
+    the card.  With ``cold`` each call comes right after an L2 eviction
+    (:func:`l2_evictor`), whose kernel (``EVICT_KERNEL``) is left out.
+    The profiler can also drop every record of a run; after ``tries`` such
+    runs the time is taken with CUDA events instead, and a line on
+    standard error says so: with ``cold`` around each call
+    (:func:`cold_ms`), else around a CUDA graph of reps calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    evict = l2_evictor() if cold else None
+    profiled = (lambda: (evict(), fn())) if cold else fn
+    profiled()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    recorded = [(evt.self_device_time_total, evt.count)
-                for evt in prof.key_averages()
-                if evt.device_type == DeviceType.CUDA
-                and evt.self_device_time_total
-                and (kernel is None or kernel in evt.key)
-                and (exclude is None or exclude not in evt.key)]
-    if recorded:
-        return sum(t / n * max(1, round(n / reps))
-                   for t, n in recorded) / 1e3
-    if exclude is not None:
-        raise RuntimeError("the profiler recorded no device time")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                profiled()
+            torch.cuda.synchronize()
+        recorded = [(evt.self_device_time_total, evt.count)
+                    for evt in prof.key_averages()
+                    if evt.device_type == DeviceType.CUDA
+                    and evt.self_device_time_total
+                    and (kernel is None or kernel in evt.key)
+                    and not (cold and EVICT_KERNEL in evt.key)]
+        if recorded:
+            return sum(t / n * max(1, round(n / reps))
+                       for t, n in recorded) / 1e3
+    print(f"device_ms: the profiler recorded no device time of "
+          f"{kernel or 'any kernel'} in {tries} runs; timed with CUDA "
+          f"events instead", file=sys.stderr, flush=True)
+    if cold:
+        return cold_ms(fn, reps=reps)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -168,18 +178,13 @@ def times(fn, kernel: str | None, library=None, reps: int = 50,
     ``cold`` each timed call runs on a cold L2, as on a path that rewrites
     its tables between launches: ``ms`` from :func:`cold_ms`, the device
     times with an eviction before each call and its kernel left out."""
-    timer, exclude, profiled = cuda_ms, None, lambda f: f
-    if cold:
-        evict = l2_evictor()
-        timer, exclude = cold_ms, EVICT_KERNEL
-        profiled = lambda f: lambda: (evict(), f())
+    timer = cold_ms if cold else cuda_ms
     row = {"ms": timer(fn, reps=reps),
-           "device_ms": device_ms(profiled(fn), kernel, exclude=exclude),
+           "device_ms": device_ms(fn, kernel, cold=cold),
            "host_us": host_us(fn)}
     if library is not None:
         row["library_ms"] = timer(library, reps=reps)
-        row["library_device_ms"] = device_ms(profiled(library),
-                                             exclude=exclude)
+        row["library_device_ms"] = device_ms(library, cold=cold)
     return row
 
 

@@ -385,7 +385,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "graphsage_torch.step_anatomy, graphsage_torch.profile_cached, "
         "graphsage_torch.profile_unsup, graphsage_torch.halo_overhead, "
         "graphsage_torch.scaling_bench, graphsage_torch.pairs_scale_bench, "
-        "graphsage_torch.parallel.ranks\n"
+        "graphsage_torch.parallel.ranks, graphsage_torch.validate_cached, "
+        "graphsage_torch.staleness_quality, graphsage_torch.max_seed_study, "
+        "graphsage_torch.prefetch_bench, graphsage_torch.profile_dense\n"
         "import chip_smoke, tests.torch_dist_worker\n"
         "assert not any(m.split('.')[0] in ('jax', 'graphsage_tpu', 'tools') "
         "for m, v in sys.modules.items() if v is not None)\n")
