@@ -1,0 +1,25 @@
+"""transform_ms.embed: the device time of a serving pass's layer
+transforms, in ms: for each layer, the mean over its ``serve.transform``
+spans that carry a device time (MEAN's pretransform GEMM, one a layer),
+timed by a pair of CUDA events in the stream, summed over the layers.
+Listed for the device-bound MEAN pass only: where the host is slower than
+the device, the events time a stream that waits for the host's launches.
+Spans are stored only while the slice is profiled; a program without them
+gives nothing."""
+
+SPAN = "serve.transform"
+
+
+def read(ctx):
+    if ctx.trace.busy_s <= 0:
+        return None
+    try:
+        from graphsage_torch.utils.obs import records
+    except ImportError:
+        return None
+    layers = {}
+    for s in records()["spans"]:
+        if s["name"] == SPAN and s["device_ms"] is not None:
+            layers.setdefault(s["counts"].get("layer"), []).append(
+                s["device_ms"])
+    return sum(sum(v) / len(v) for v in layers.values()) if layers else None

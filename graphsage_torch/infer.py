@@ -52,6 +52,7 @@ from graphsage_torch.models.layers import (classifier_apply,
 from graphsage_torch.models.lstm_agg import lstm_aggregate
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 from graphsage_torch.parallel.comm import all_gather_no_grad, rank_world
+from graphsage_torch.utils.obs import span
 
 # Working-set budget for one block's [block, S, gather_dim] gather: the
 # plain versions' on the CPU, and the LSTM layers' on the card.
@@ -111,7 +112,10 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
     prepended by the caller in gcn mode).  The rows' own inputs are h
     (``self_h`` for MAX and LSTM when they are not h's first N rows: a
     shard's).  The aggregation runs over row blocks of ``block`` rows; on
-    the card the caller passes :func:`card_block`'s."""
+    the card the caller passes :func:`card_block`'s.  Spans: one
+    ``serve.transform`` and one ``serve.aggregate`` a block (on the card a
+    layer, but LSTM's); MEAN's pretransform, one GEMM over every row, is
+    timed on the device too."""
     w = params["layers"][layer]["weight"]
     hdim = w.shape[0]
     n = idx.shape[0]
@@ -119,29 +123,34 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
     rows = [slice(r0, min(r0 + block, n)) for r0 in range(0, n, block)]
 
     if agg_func == "MEAN":
-        if cfg.gcn:
-            z = mean_pretransform(w, h, gcn=True)               # [N, H]
-            out = [torch.relu(mean_aggregate(z, idx[r], mask[r]))
-                   for r in rows]
-        else:
-            z = mean_pretransform(w, h)                         # [N, 2H]
-            # z[:, H:] is a strided view; the kernel takes its row stride
-            out = [torch.relu(mean_aggregate(z[:, hdim:], idx[r], mask[r])
-                              + z[r, :hdim])
-                   for r in rows]
-        return _cat_rows(out)
+        with span("serve.transform", device=h.device, layer=layer):
+            # [N, H] with gcn, else [N, 2H]
+            z = mean_pretransform(w, h, gcn=cfg.gcn)
+        with span("serve.aggregate", layer=layer, rows=n):
+            if cfg.gcn:
+                out = [torch.relu(mean_aggregate(z, idx[r], mask[r]))
+                       for r in rows]
+            else:
+                # z[:, H:] is a strided view; the kernel takes its row
+                # stride
+                out = [torch.relu(mean_aggregate(z[:, hdim:], idx[r],
+                                                 mask[r]) + z[r, :hdim])
+                       for r in rows]
+            return _cat_rows(out)
 
     if agg_func in ("MAX", "LSTM"):
         out = []
         for r in rows:
-            if agg_func == "MAX":
-                agg = max_aggregate(h, idx[r], mask[r])
-            else:
-                agg = lstm_aggregate(params["agg"][layer], h, idx[r],
-                                     mask[r])
-            self_rows = agg if cfg.gcn else self_h[r]
-            out.append(sage_layer_apply(params["layers"][layer], self_rows,
-                                        agg, gcn=cfg.gcn))
+            with span("serve.aggregate", layer=layer, rows=r.stop - r.start):
+                if agg_func == "MAX":
+                    agg = max_aggregate(h, idx[r], mask[r])
+                else:
+                    agg = lstm_aggregate(params["agg"][layer], h, idx[r],
+                                         mask[r])
+            with span("serve.transform", layer=layer):
+                self_rows = agg if cfg.gcn else self_h[r]
+                out.append(sage_layer_apply(params["layers"][layer],
+                                            self_rows, agg, gcn=cfg.gcn))
         return _cat_rows(out)
 
     raise ValueError(f"unknown agg_func {agg_func!r}")

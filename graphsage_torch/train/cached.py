@@ -55,6 +55,7 @@ from graphsage_torch.ops.gather import gather_rows
 from graphsage_torch.sampler.device import sample_frontiers_dense
 from graphsage_torch.train.dense import cast_compute
 from graphsage_torch.train.optim import apply_gradients
+from graphsage_torch.utils.obs import span
 
 
 def _check_cached(mcfg: GraphSageConfig) -> None:
@@ -139,22 +140,25 @@ def cached_forward(params: dict, mcfg: GraphSageConfig, feats: torch.Tensor,
     if full_table is None:
         full_table = layer1_full_table(feats.shape[0], feats.shape[1],
                                        ids.shape[0], w1["weight"].shape[0])
-    if mcfg.gcn:
-        if full_table:
-            mixed_t = _gcn_mix(feats, cache_feats, cache_count, is_max)
-            h1_table = sage_layer_apply(w1, mixed_t, mixed_t, gcn=True)
+    with span("step.layer1", device=feats.device,
+              full_table=int(full_table)):
+        if mcfg.gcn:
+            if full_table:
+                mixed_t = _gcn_mix(feats, cache_feats, cache_count, is_max)
+                h1_table = sage_layer_apply(w1, mixed_t, mixed_t, gcn=True)
+                h = gather_rows(h1_table, ids)
+            else:
+                self_f = gather_rows(feats, ids)
+                agg_f = gather_rows(cache_feats, ids)
+                mixed = _gcn_mix(self_f, agg_f, cache_count[ids.long()],
+                                 is_max)
+                h = sage_layer_apply(w1, mixed, mixed, gcn=True)
+        elif full_table:
+            h1_table = sage_layer_apply(w1, feats, cache_feats, gcn=False)
             h = gather_rows(h1_table, ids)
         else:
-            self_f = gather_rows(feats, ids)
-            agg_f = gather_rows(cache_feats, ids)
-            mixed = _gcn_mix(self_f, agg_f, cache_count[ids.long()], is_max)
-            h = sage_layer_apply(w1, mixed, mixed, gcn=True)
-    elif full_table:
-        h1_table = sage_layer_apply(w1, feats, cache_feats, gcn=False)
-        h = gather_rows(h1_table, ids)
-    else:
-        h = sage_layer_apply(w1, gather_rows(feats, ids),
-                             gather_rows(cache_feats, ids), gcn=False)
+            h = sage_layer_apply(w1, gather_rows(feats, ids),
+                                 gather_rows(cache_feats, ids), gcn=False)
     return _upper_layers(sage, h, frontiers, fanout, mcfg.agg_func, mcfg.gcn)
 
 
@@ -203,21 +207,24 @@ class CachedStep:
     def __call__(self, params: dict, feats, cache_feats, cache_count, hop,
                  batch, labels, row_mask=None, pairs=None) -> torch.Tensor:
         """Returns the loss, a device scalar (not synchronised)."""
-        ids, frontiers = sample_cached_frontiers(hop, batch, self.mcfg,
-                                                 self.fanout)
-        embs = self._encode(params, feats, cache_feats, cache_count, ids,
-                            frontiers)
-        if row_mask is None:
-            row_mask = torch.ones(embs.shape[0], device=embs.device)
-        loss = None
-        if self.learn_method != "sup":
-            loss = unsup_loss_from_pairbatch(embs, pairs, self.unsup_loss,
-                                             q=self.q, margin=self.margin)
-        if self.learn_method != "unsup":
-            logp = classifier_apply(cast_compute(params["clf"], self.mcfg),
-                                    embs)
-            sup = supervised_nll(logp, labels, row_mask)
-            loss = sup if loss is None else loss + sup
+        with span("step.sample"):
+            ids, frontiers = sample_cached_frontiers(hop, batch, self.mcfg,
+                                                     self.fanout)
+        with span("step.forward"):
+            embs = self._encode(params, feats, cache_feats, cache_count, ids,
+                                frontiers)
+            if row_mask is None:
+                row_mask = torch.ones(embs.shape[0], device=embs.device)
+            loss = None
+            if self.learn_method != "sup":
+                loss = unsup_loss_from_pairbatch(
+                    embs, pairs, self.unsup_loss, q=self.q,
+                    margin=self.margin)
+            if self.learn_method != "unsup":
+                logp = classifier_apply(
+                    cast_compute(params["clf"], self.mcfg), embs)
+                sup = supervised_nll(logp, labels, row_mask)
+                loss = sup if loss is None else loss + sup
         return self._update(params, loss)
 
     def _encode(self, params, feats, cache_feats, cache_count, ids,

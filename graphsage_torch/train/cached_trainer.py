@@ -44,7 +44,7 @@ from graphsage_torch.train.cached import (CachedStep, _check_cached,
                                           refresh_leaf_cache,
                                           sample_cached_frontiers)
 from graphsage_torch.train.trainer import Trainer, TrainConfig, _to_device
-from graphsage_torch.utils.obs import fetch_with_deadline
+from graphsage_torch.utils.obs import fetch_with_deadline, span
 
 PAIR_FIELDS = ("pos_q", "pos_mask", "neg_q", "neg_mask", "node_valid",
                 "target_rows")
@@ -133,8 +133,9 @@ class CachedTrainer(Trainer):
         _check_cached(model_cfg)
 
     def _refresh(self):
-        return refresh_leaf_cache(self.hop, self.feats, self.tcfg.fanout,
-                                  agg=self.mcfg.agg_func)
+        with span("train.refresh"):
+            return refresh_leaf_cache(self.hop, self.feats, self.tcfg.fanout,
+                                      agg=self.mcfg.agg_func)
 
     def _epoch_cache(self):
         """The leaf cache for this epoch under refresh_every=k: refreshed
@@ -181,40 +182,43 @@ class CachedTrainer(Trainer):
         """One epoch; returns the mean step loss (the per-step losses are
         left in ``self.step_losses``)."""
         tcfg = self.tcfg
-        order = self.rng.permutation(self.ds.train_nodes)
-        b = tcfg.b_sz
-        t = math.ceil(len(order) / b)
-        pair_stack = None
-        if tcfg.learn_method == "sup" and not self.extend_batches:
-            # plain fixed-size batches; the wrap-padded tail rows are
-            # masked out of the loss
-            batches = np.resize(order, t * b).reshape(t, b).astype(np.int32)
-            row_masks = np.ones((t, b), np.float32)
-            row_masks[t - 1, len(order) - (t - 1) * b:] = 0.0
-            labels = self.labels_np[batches].astype(np.int32)
-            visited = len(np.unique(order))
-            batches, labels, row_masks = (
-                _to_device(x, self.device)
-                for x in (batches, labels, row_masks))
-        else:
-            # extended batches for every learn method (reference
-            # src/utils.py:147-149)
-            pbs = [self.pair_sampler.sample_batch(
-                order[i * b:(i + 1) * b], tcfg.num_neg, self.rng)
-                for i in range(t)]
-            batches, labels, row_masks, pair_stack = _stack_pair_batches(
-                pbs, b, self.labels_np, self.device)
-            visited = len({int(v) for pb in pbs
-                           for v in pb.unique_nodes[:pb.num_unique]})
+        with span("train.batches", rows=len(self.ds.train_nodes)):
+            order = self.rng.permutation(self.ds.train_nodes)
+            b = tcfg.b_sz
+            t = math.ceil(len(order) / b)
+            pair_stack = None
+            if tcfg.learn_method == "sup" and not self.extend_batches:
+                # plain fixed-size batches; the wrap-padded tail rows are
+                # masked out of the loss
+                batches = (np.resize(order, t * b).reshape(t, b)
+                           .astype(np.int32))
+                row_masks = np.ones((t, b), np.float32)
+                row_masks[t - 1, len(order) - (t - 1) * b:] = 0.0
+                labels = self.labels_np[batches].astype(np.int32)
+                visited = len(np.unique(order))
+                batches, labels, row_masks = (
+                    _to_device(x, self.device)
+                    for x in (batches, labels, row_masks))
+            else:
+                # extended batches for every learn method (reference
+                # src/utils.py:147-149)
+                pbs = [self.pair_sampler.sample_batch(
+                    order[i * b:(i + 1) * b], tcfg.num_neg, self.rng)
+                    for i in range(t)]
+                batches, labels, row_masks, pair_stack = _stack_pair_batches(
+                    pbs, b, self.labels_np, self.device)
+                visited = len({int(v) for pb in pbs
+                               for v in pb.unique_nodes[:pb.num_unique]})
         # refresh_every=1 refreshes every epoch: the JAX fused epoch's
         # order (refresh, then the steps), with the cache kept on the trainer
         losses = cached_epoch_reuse(
             self._step, self.params, self.feats, *self._epoch_cache(),
             self.hop, batches, labels, row_masks, pair_stack)
         # the epoch's one synchronisation, deadline-guarded
-        self.step_losses = fetch_with_deadline(
-            losses, label=f"cached epoch {self.epoch} loss fetch",
-            convert=torch.Tensor.tolist)
+        with span("train.loss_fetch"):
+            self.step_losses = fetch_with_deadline(
+                losses, label=f"cached epoch {self.epoch} loss fetch",
+                convert=torch.Tensor.tolist)
         mean_loss = float(np.mean(self.step_losses))
         self.metrics.log("epoch", epoch=self.epoch, mean_loss=mean_loss,
                          visited_nodes=visited, train_nodes=len(order),

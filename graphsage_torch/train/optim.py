@@ -14,6 +14,7 @@ import torch.distributed as dist
 
 from graphsage_torch.parallel.comm import mean_over_ranks, sum_over_ranks
 from graphsage_torch.parallel.mesh import Mesh, map_with_paths, sharded_dim
+from graphsage_torch.utils.obs import span
 
 
 def tree_leaves(tree) -> list:
@@ -49,22 +50,26 @@ def apply_gradients(params: dict, loss: torch.Tensor, models, lr: float,
     gets a zero gradient (its params stay).  ``reduce`` maps the list of
     gradients before the clip (the distributed steps' mean over ranks);
     ``norms`` maps {model: its gradients} to {model: the norm its clip
-    uses} (by default each model's :func:`global_norm`)."""
+    uses} (by default each model's :func:`global_norm`).  The backward and
+    the clip with SGD are the spans ``step.backward`` and
+    ``step.optimizer`` (``utils/obs.py``)."""
     leaves = {k: tree_leaves(params[k]) for k in models}
     flat = [p for k in models for p in leaves[k]]
-    grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g
-             for p, g in zip(flat, grads)]
+    with span("step.backward"):
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(flat, grads)]
     if reduce is not None:
         grads = reduce(grads)
-    split, at = {}, 0
-    for k in models:
-        split[k] = grads[at:at + len(leaves[k])]
-        at += len(leaves[k])
-    norm = {} if norms is None else norms(split)
-    for k in models:
-        sgd_update(leaves[k], clip_by_global_norm(split[k], clip_norm,
-                                                  norm.get(k)), lr)
+    with span("step.optimizer"):
+        split, at = {}, 0
+        for k in models:
+            split[k] = grads[at:at + len(leaves[k])]
+            at += len(leaves[k])
+        norm = {} if norms is None else norms(split)
+        for k in models:
+            sgd_update(leaves[k], clip_by_global_norm(split[k], clip_norm,
+                                                      norm.get(k)), lr)
 
 
 def apply_gradients_mean(params: dict, loss: torch.Tensor, lr: float,

@@ -61,7 +61,7 @@ from graphsage_torch.train.metrics import micro_f1
 from graphsage_torch.train.optim import apply_gradients
 from graphsage_torch.utils.obs import (MetricsLogger, collective_watchdog,
                                        fetch_with_deadline,
-                                       maybe_inject_test_wedge)
+                                       maybe_inject_test_wedge, span)
 from graphsage_torch.utils.prefetch import Prefetcher, prefetch
 
 
@@ -202,24 +202,27 @@ class Trainer:
         has already waited for under the deadline."""
         tcfg = self.tcfg
         dev = self.device
-        x0_ids, frontiers = _to_device(cb.x0_ids, dev), _frontiers(cb, dev)
         sup = tcfg.learn_method in ("sup", "plus_unsup")
         unsup = tcfg.learn_method in ("unsup", "plus_unsup")
-        if sup:
-            labels = _to_device(labels, dev)
-            row_mask = _to_device(row_mask, dev)
-        if unsup:
-            pairs = _pair_tensors(pb, dev)
-        embs = self._encode(self.params["sage"], x0_ids, frontiers)
-        loss = torch.zeros((), device=dev)
-        if sup:
-            logp = classifier_apply(cast_compute(self.params["clf"],
-                                                 self.mcfg), embs)
-            loss = loss + supervised_nll(logp, labels, row_mask)
-        if unsup:
-            loss = loss + unsup_loss_from_pairbatch(
-                embs, pairs, tcfg.unsup_loss,
-                q=self.pair_sampler.q, margin=self.pair_sampler.margin)
+        with span("step.upload"):
+            x0_ids, frontiers = (_to_device(cb.x0_ids, dev),
+                                 _frontiers(cb, dev))
+            if sup:
+                labels = _to_device(labels, dev)
+                row_mask = _to_device(row_mask, dev)
+            if unsup:
+                pairs = _pair_tensors(pb, dev)
+        with span("step.forward"):
+            embs = self._encode(self.params["sage"], x0_ids, frontiers)
+            loss = torch.zeros((), device=dev)
+            if sup:
+                logp = classifier_apply(cast_compute(self.params["clf"],
+                                                     self.mcfg), embs)
+                loss = loss + supervised_nll(logp, labels, row_mask)
+            if unsup:
+                loss = loss + unsup_loss_from_pairbatch(
+                    embs, pairs, tcfg.unsup_loss,
+                    q=self.pair_sampler.q, margin=self.pair_sampler.margin)
         apply_gradients(self.params, loss, ("sage", "clf"), tcfg.lr,
                         tcfg.clip_norm)
         return loss.detach()
@@ -295,16 +298,19 @@ class Trainer:
         frontiers, labels and row mask.  Runs on the prefetch thread and
         consumes self.rng in order (see utils/prefetch.py)."""
         tcfg = self.tcfg
-        pb = self.pair_sampler.sample_batch(nodes, tcfg.num_neg, self.rng)
-        cb = build_compact_batch(
-            self.ds.graph, pb.unique_nodes, self.rng,
-            num_layers=self.mcfg.num_layers, fanout=tcfg.fanout,
-            gcn=self.mcfg.gcn, shuffle_slots=self.mcfg.agg_func == "LSTM")
-        u_pad = cb.out_rows
-        labels = np.zeros(u_pad, dtype=np.int32)
-        real = pb.unique_nodes[:pb.num_unique]
-        labels[:pb.num_unique] = self.labels_np[real]
-        row_mask = (np.arange(u_pad) < pb.num_unique).astype(np.float32)
+        with span("train.host_batch") as batch_span:
+            pb = self.pair_sampler.sample_batch(nodes, tcfg.num_neg,
+                                                self.rng)
+            cb = build_compact_batch(
+                self.ds.graph, pb.unique_nodes, self.rng,
+                num_layers=self.mcfg.num_layers, fanout=tcfg.fanout,
+                gcn=self.mcfg.gcn, shuffle_slots=self.mcfg.agg_func == "LSTM")
+            u_pad = cb.out_rows
+            labels = np.zeros(u_pad, dtype=np.int32)
+            real = pb.unique_nodes[:pb.num_unique]
+            labels[:pb.num_unique] = self.labels_np[real]
+            row_mask = (np.arange(u_pad) < pb.num_unique).astype(np.float32)
+            batch_span.note(unique=int(pb.num_unique), padded=int(u_pad))
         return pb, cb, labels, row_mask
 
     def train_epoch(self) -> float:
@@ -326,6 +332,10 @@ class Trainer:
         losses: list[float] = []
         pending = None   # (loss, label) of a step not fetched yet
 
+        def fetch(loss, label):
+            with span("train.loss_fetch"):
+                return fetch_with_deadline(loss, label)
+
         def producer():
             for bi in range(batches):
                 nodes = train_nodes[bi * tcfg.b_sz:(bi + 1) * tcfg.b_sz]
@@ -339,7 +349,7 @@ class Trainer:
                 visited.update(int(v)
                                for v in pb.unique_nodes[:pb.num_unique])
                 if pending is not None:
-                    losses.append(fetch_with_deadline(*pending))
+                    losses.append(fetch(*pending))
                     pending = None
                 if self._warmed:
                     pending = (self._step(*batch),
@@ -350,20 +360,20 @@ class Trainer:
                     # warmup if it takes long
                     with collective_watchdog(
                             label="first train step (kernel load/warmup)"):
-                        losses.append(fetch_with_deadline(
-                            self._step(*batch),
-                            label="step 1 loss fetch (warmup)"))
+                        loss = self._step(*batch)
+                        losses.append(fetch(
+                            loss, "step 1 loss fetch (warmup)"))
                     self._warmed = True
                 if tcfg.verbose:
                     if pending is not None:
-                        losses.append(fetch_with_deadline(*pending))
+                        losses.append(fetch(*pending))
                         pending = None
                     # per-step loss print (reference src/utils.py:183)
                     print(f"Step [{bi + 1}/{batches}], Loss: "
                           f"{losses[-1]:.4f}, Dealed Nodes [{len(visited)}/"
                           f"{len(train_nodes)}]")
             if pending is not None:
-                losses.append(fetch_with_deadline(*pending))
+                losses.append(fetch(*pending))
         except BaseException:
             if isinstance(stream, Prefetcher):
                 stream.close()  # unblock and join the producer thread

@@ -13,7 +13,12 @@ Port of ``graphsage_tpu/utils/obs.py``:
 - ``maybe_inject_test_wedge`` is the fault-injection seam of the
   auto-resume supervisor's tests (``graphsage_torch.supervise``);
 - ``profile`` writes a ``torch.profiler`` trace of a block, and
-  ``enable_nan_checks`` turns autograd's NaN checks on and off.
+  ``enable_nan_checks`` turns autograd's NaN checks on and off;
+- ``span`` and ``count`` mark the phases of training and serving (host
+  batch, prefetch wait, the step's parts, layer 1, the serving transforms)
+  while a ``torch.profiler`` records, on the profile's timeline and in a
+  bounded in-memory store that ``records`` reads; ``Carry`` hands the
+  on/off state to a worker thread.
 
 The CLI exits with code 17 on :class:`FetchDeadlineError`, and the
 supervisor relaunches it with ``--resume``.  In place of the JAX module's
@@ -23,6 +28,7 @@ group.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
@@ -67,6 +73,185 @@ def profile(log_dir: str):
     with torch_profile(activities=activities) as prof:
         yield path
     prof.export_chrome_trace(path)
+
+
+# ------------------------------------------------------------------ spans
+#
+# A span is on exactly while a torch.profiler records on the calling thread
+# (or, on a worker thread, while its owner's did when it last looked: see
+# ``Carry``).  Off, ``span`` returns one shared no-op object after one check.
+# On, the span is an event ``gs:<name>`` of the profile and a record in the
+# store.  The event is a FUNCTION-scope record (``_RecordFunctionFast``, as
+# an operator's), not a user annotation (``record_function``), which the
+# CUDA profiler mirrors onto the device's timeline as if it were device
+# work.  Stamps are ``time.time_ns()``: the profile's timeline is on the
+# Unix clock (its ``trace_start_ns`` plus each event's microseconds).
+
+SPAN_PREFIX = "gs:"
+SPANS_KEPT = 1 << 16          # the store's bound: the oldest drop first
+
+_profiling = torch._C._autograd._profiler_enabled
+
+
+class _Local(threading.local):
+    carried = None        # the Carry this worker thread runs under
+    stack = None          # the open spans, innermost last
+
+
+_local = _Local()
+
+
+class _Store:
+    """The spans and counters of the process (like the profiler, one a
+    process)."""
+
+    def __init__(self):
+        self.spans: collections.deque = collections.deque(maxlen=SPANS_KEPT)
+        self.counts: collections.Counter = collections.Counter()
+        self.lock = threading.Lock()
+
+
+_STORE = _Store()
+
+
+class _Off:
+    """The span of a thread that no profiler records: does nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def note(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
+
+
+class _Span:
+    __slots__ = ("name", "counts", "event", "cuda", "thread", "parent",
+                 "start", "end", "device_ms")
+
+    def __init__(self, name: str, device, counts: dict, profiled: bool):
+        self.name = name
+        self.counts = counts
+        # the profiler cannot see a worker thread: its spans go to the
+        # store only
+        self.event = (torch._C._profiler._RecordFunctionFast(
+            SPAN_PREFIX + name) if profiled else None)
+        self.cuda = None
+        if (device is not None and torch.device(device).type == "cuda"
+                and not torch.cuda.is_current_stream_capturing()):
+            self.cuda = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+        self.device_ms = None
+
+    def note(self, **counts) -> None:
+        """Add counts known only inside the block."""
+        self.counts.update(counts)
+
+    def __enter__(self):
+        stack = _local.stack
+        if stack is None:
+            stack = _local.stack = []
+        self.parent = stack[-1].name if stack else None
+        stack.append(self)
+        self.start = time.time_ns()
+        if self.event is not None:
+            self.event.__enter__()
+        if self.cuda is not None:
+            self.cuda[0].record()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda is not None:
+            self.cuda[1].record()
+        if self.event is not None:
+            self.event.__exit__(*exc)
+        self.end = time.time_ns()
+        _local.stack.pop()
+        self.event = None
+        self.thread = threading.current_thread().name
+        with _STORE.lock:
+            _STORE.spans.append(self)
+        return False
+
+
+class Carry:
+    """The on/off state of the thread that made it, handed to a worker
+    thread: spans and counts on a thread inside ``with carried:`` are on
+    while ``carried.on``.  The owner calls ``refresh()`` to hand on its
+    state again (``utils/prefetch.py`` does at each batch it takes)."""
+    __slots__ = ("on",)
+
+    def __init__(self):
+        self.on = _profiling()
+
+    def refresh(self) -> None:
+        self.on = _profiling()
+
+    def __enter__(self):
+        _local.carried = self
+        return self
+
+    def __exit__(self, *exc):
+        _local.carried = None
+        return False
+
+
+def span(name: str, device=None, **counts):
+    """A context manager marking one phase ``name`` of the program's work,
+    with ``counts`` (numbers that describe it; ``note`` adds more inside
+    the block).  Off (no profiler recording on this thread), the shared
+    no-op.  On, an event ``gs:<name>`` of the profile and, at the block's
+    end, a record in the store: name, thread name, parent span on this
+    thread, start and end (``time.time_ns``), counts.  ``device``: where
+    the block's work runs; a CUDA device also times the block on its
+    current stream with a pair of CUDA events (not while the stream is
+    capturing), resolved only by ``records``."""
+    if _profiling():
+        return _Span(name, device, counts, True)
+    carried = _local.carried
+    if carried is None or not carried.on:
+        return _OFF
+    return _Span(name, device, counts, False)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the store's counter ``name`` when spans are on."""
+    carried = _local.carried
+    if _profiling() or (carried is not None and carried.on):
+        with _STORE.lock:
+            _STORE.counts[name] += n
+
+
+def records(clear: bool = False) -> dict:
+    """The store: {"spans": [{"name", "thread", "parent", "start_ns",
+    "end_ns", "host_ms", "device_ms", "counts"}, ...] (oldest first,
+    ``device_ms`` None for a span without CUDA events), "counts": {name:
+    n}}.  Spans timed on the device are resolved here, after one
+    synchronisation.  ``clear`` empties the store."""
+    with _STORE.lock:
+        spans = list(_STORE.spans)
+        counts = dict(_STORE.counts)
+        if clear:
+            _STORE.spans.clear()
+            _STORE.counts.clear()
+    pending = [s for s in spans if s.cuda is not None]
+    if pending:
+        torch.cuda.synchronize()
+        for s in pending:
+            s.device_ms = s.cuda[0].elapsed_time(s.cuda[1])
+            s.cuda = None
+    return {"spans": [{"name": s.name, "thread": s.thread,
+                       "parent": s.parent, "start_ns": s.start,
+                       "end_ns": s.end, "host_ms": (s.end - s.start) / 1e6,
+                       "device_ms": s.device_ms, "counts": s.counts}
+                      for s in spans],
+            "counts": counts}
 
 
 def enable_nan_checks(enable: bool = True) -> None:

@@ -10,6 +10,11 @@ would, consuming the trainer's ``np.random.RandomState`` in the same order,
 so prefetched and serial epochs are bit-identical.  The RandomState must
 not be touched by the consumer while an epoch's producer is live.  Host to
 device copies stay on the consumer thread; the producer is numpy only.
+
+Tracing (``utils/obs.py``): the producer runs under the consumer's carried
+span state, refreshed at each batch taken; each take is a ``prefetch.wait``
+span and counts ``prefetch.gets``, and ``prefetch.starved`` when the queue
+was empty.
 """
 
 from __future__ import annotations
@@ -18,6 +23,8 @@ import queue
 import threading
 import time
 from typing import Callable, Iterator, TypeVar
+
+from graphsage_torch.utils import obs
 
 T = TypeVar("T")
 
@@ -37,12 +44,17 @@ class Prefetcher:
         self._q: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._err: BaseException | None = None
         self._stop = threading.Event()
+        self._carried = obs.Carry()
         self._thread = threading.Thread(
             target=self._run, args=(producer,), daemon=True,
             name="gs-batch-prefetch")
         self._thread.start()
 
     def _run(self, producer: Callable[[], Iterator[T]]) -> None:
+        with self._carried:
+            self._produce(producer)
+
+    def _produce(self, producer: Callable[[], Iterator[T]]) -> None:
         try:
             for item in producer():
                 while not self._stop.is_set():
@@ -67,12 +79,18 @@ class Prefetcher:
         return self
 
     def __next__(self) -> T:
-        item = self._q.get()
+        self._carried.refresh()
+        starved = self._q.empty()
+        with obs.span("prefetch.wait"):
+            item = self._q.get()
         if item is _SENTINEL:
             self._thread.join()
             if self._err is not None:
                 raise self._err
             raise StopIteration
+        obs.count("prefetch.gets")
+        if starved:
+            obs.count("prefetch.starved")
         return item
 
     def close(self, timeout: float = 60.0) -> None:

@@ -1,12 +1,17 @@
 """The port's fault handling (graphsage_torch.utils.obs): the metrics sink,
 the deadline-guarded fetch, the first-step watchdog and the test wedge, as
 tests/test_obs.py holds the JAX package's; the trainers' fetches all
-going through the deadline guard; the profiler trace and the NaN checks."""
+going through the deadline guard; the profiler trace and the NaN checks;
+the spans and counters of training and serving, on while a profiler
+records and on its timeline."""
 
+import contextlib
 import io
 import json
 import re
+import threading
 import time
+import timeit
 
 import numpy as np
 import pytest
@@ -15,8 +20,10 @@ import torch
 import graphsage_torch.train.cached_trainer as cached_trainer_mod
 import graphsage_torch.train.trainer as trainer_mod
 from graphsage_torch.data import synthetic_power_law
+from graphsage_torch.infer import full_graph_embeddings
 from graphsage_torch.models import GraphSageConfig
 from graphsage_torch.train import CachedTrainer, Trainer, TrainConfig
+from graphsage_torch.train.optim import tree_leaves
 from graphsage_torch.utils import obs
 from graphsage_torch.utils.obs import (FetchDeadlineError, MetricsLogger,
                                        collective_watchdog,
@@ -270,3 +277,196 @@ def test_enable_nan_checks_raises_on_a_nan_in_the_backward():
     assert not torch.is_anomaly_enabled()
     _NanBackward.apply(x).sum().backward()
     assert torch.isnan(x.grad).all()
+
+
+# ------------------------------------------------------------------ spans
+
+def _cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+@pytest.fixture
+def store():
+    """The span store, empty before and after the test."""
+    obs.records(clear=True)
+    yield
+    obs.records(clear=True)
+
+
+def _spans(rec, name):
+    return [s for s in rec["spans"] if s["name"] == name]
+
+
+def _check_on_the_timeline(prof, rec):
+    """Every main-thread record has its gs: event in the profile, inside
+    the record's own stamps (50 µs for the two clocks), of the same
+    duration (10% or 50 µs) and start (0.5 ms, on the Unix clock).  A
+    thread the system takes off its core between a stamp and its event's
+    lengthens the record by the time it was off: one record in twenty (at
+    least one) may differ so."""
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    events = {}
+    for e in prof.events():
+        if e.name.startswith(obs.SPAN_PREFIX):
+            events.setdefault(e.name[len(obs.SPAN_PREFIX):], []).append(e)
+    main = [s for s in rec["spans"] if s["thread"] == "MainThread"]
+    assert main
+    apart = []
+    for name in {s["name"] for s in main}:
+        mine = sorted(_spans({"spans": main}, name),
+                      key=lambda s: s["start_ns"])
+        theirs = sorted(events.get(name, []),
+                        key=lambda e: e.time_range.start)
+        assert len(mine) == len(theirs), name
+        for s, e in zip(mine, theirs):
+            dur_us = e.time_range.elapsed_us()
+            at_ns = start_ns + e.time_range.start * 1e3
+            assert s["start_ns"] - 5e4 <= at_ns, name
+            assert at_ns + dur_us * 1e3 <= s["end_ns"] + 5e4, name
+            if (abs(s["host_ms"] * 1e3 - dur_us) > max(0.1 * dur_us, 50.0)
+                    or abs(at_ns - s["start_ns"]) > 5e5):
+                apart.append((name, s["host_ms"], dur_us))
+    assert len(apart) <= max(1, len(main) // 20), apart
+
+
+def test_spans_are_off_and_cheap_without_a_profiler(store):
+    """No profiler: nothing is stored, one shared no-op is returned, and a
+    use costs no more than three empty ``with contextlib.nullcontext()``
+    blocks timed in the same process (about one, 0.4-0.5 µs, on a CPU
+    host)."""
+    def use():
+        with obs.span("x", rows=3) as s:
+            s.note(more=1)
+        obs.count("y")
+
+    def empty():
+        with contextlib.nullcontext():
+            pass
+
+    use()
+    assert obs.span("a") is obs.span("b", device=torch.device("cpu"))
+    assert obs.records() == {"spans": [], "counts": {}}
+    # the least of many short runs: the cost where no other process held
+    # the core
+    n = 1000
+    per_use = min(timeit.repeat(use, number=n, repeat=200)) / n / 2
+    baseline = min(timeit.repeat(empty, number=n, repeat=200)) / n
+    assert per_use <= 3 * baseline, (per_use, baseline)
+
+
+def test_cached_epoch_spans(small, store):
+    tr = _trainer(small, cls=CachedTrainer)
+    tr.train_epoch()                    # warm, untraced: stores nothing
+    assert obs.records()["spans"] == []
+    with _cpu_profile() as prof:
+        tr.train_epoch()
+    rec = obs.records()
+    steps = len(tr.step_losses)
+    assert steps > 1
+    batches = _spans(rec, "train.batches")
+    assert len(batches) == 1
+    assert batches[0]["counts"] == {"rows": len(small.train_nodes)}
+    for name, n, parent in (("train.refresh", 1, None),
+                            ("step.sample", steps, None),
+                            ("step.forward", steps, None),
+                            ("step.layer1", steps, "step.forward"),
+                            ("step.backward", steps, None),
+                            ("step.optimizer", steps, None),
+                            ("train.loss_fetch", 1, None)):
+        found = _spans(rec, name)
+        assert len(found) == n, name
+        assert {s["parent"] for s in found} == {parent}, name
+    assert {s["counts"]["full_table"] for s in _spans(rec, "step.layer1")
+            } <= {0, 1}
+    assert all(s["device_ms"] is None for s in rec["spans"])
+    _check_on_the_timeline(prof, rec)
+
+
+def test_compact_epoch_spans_on_the_prefetch_thread(small, store):
+    tr = _trainer(small, prefetch_depth=2, learn_method="plus_unsup")
+    with _cpu_profile() as prof:
+        tr.train_epoch()
+    rec = obs.records()
+    steps = len(tr.step_losses)
+    assert steps > 1
+    host = _spans(rec, "train.host_batch")
+    assert len(host) == steps
+    assert {s["thread"] for s in host} == {"gs-batch-prefetch"}
+    assert all(0 < s["counts"]["unique"] <= s["counts"]["padded"]
+               for s in host)
+    waits = _spans(rec, "prefetch.wait")
+    assert {s["thread"] for s in waits} == {"MainThread"}
+    assert len(waits) == steps + 1      # and the end of the queue
+    assert rec["counts"]["prefetch.gets"] == steps
+    assert 0 <= rec["counts"].get("prefetch.starved", 0) <= steps
+    for name in ("step.upload", "step.forward", "step.backward",
+                 "step.optimizer", "train.loss_fetch"):
+        assert len(_spans(rec, name)) == steps, name
+    _check_on_the_timeline(prof, rec)
+    # the producer's state follows its owner's: off once the profile ends
+    obs.records(clear=True)
+    tr.train_epoch()
+    assert obs.records() == {"spans": [], "counts": {}}
+
+
+@pytest.mark.parametrize("agg", ["MEAN", "MAX"])
+def test_serving_pass_spans(small, store, agg):
+    from graphsage_torch.models.graphsage import init_graphsage
+    mcfg = GraphSageConfig(num_layers=2, input_size=12, out_size=8,
+                           agg_func=agg)
+    params = init_graphsage(torch.Generator().manual_seed(0), mcfg)
+    pad = small.graph.to_padded()
+    with _cpu_profile() as prof:
+        full_graph_embeddings(params, mcfg, small.features, pad,
+                              device="cpu")
+    rec = obs.records()
+    for name in ("serve.transform", "serve.aggregate"):
+        assert sorted(s["counts"]["layer"] for s in _spans(rec, name)) == [
+            0, 1], name
+    assert {s["counts"]["rows"] for s in _spans(rec, "serve.aggregate")
+            } == {small.num_nodes}
+    _check_on_the_timeline(prof, rec)
+
+
+@pytest.mark.parametrize("cls", [Trainer, CachedTrainer],
+                         ids=["compact", "cached"])
+def test_traced_epochs_equal_untraced_ones(small, store, cls):
+    """Spans read nothing the step computes: the losses and parameters of
+    a traced epoch equal an untraced one's bit for bit."""
+    kw = {"prefetch_depth": 2} if cls is Trainer else {}
+    plain, traced = (_trainer(small, cls=cls, learn_method="plus_unsup",
+                              **kw) for _ in range(2))
+    plain.train_epoch()
+    with _cpu_profile():
+        traced.train_epoch()
+    assert obs.records()["spans"]
+    assert plain.step_losses == traced.step_losses
+    for a, b in zip(tree_leaves(plain.params), tree_leaves(traced.params)):
+        assert torch.equal(a, b)
+
+
+def test_a_carried_state_is_refreshed_by_its_owner(store):
+    """A worker thread's spans follow the state its owner last handed on."""
+    carried = obs.Carry()
+    assert not carried.on
+    seen = []
+
+    def worker():
+        with carried:
+            with obs.span("w"):
+                obs.count("w")
+            seen.append(len(obs.records()["spans"]))
+
+    with _cpu_profile():
+        carried.refresh()
+    t = threading.Thread(target=worker, name="w")
+    t.start()
+    t.join(10)
+    assert not t.is_alive() and seen == [1]
+    carried.refresh()           # the owner's profile has ended: off again
+    t = threading.Thread(target=worker, name="w")
+    t.start()
+    t.join(10)
+    assert not t.is_alive() and seen == [1, 1]
+    assert obs.records()["counts"] == {"w": 1}
