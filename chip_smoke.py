@@ -24,7 +24,8 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
      that must give identical embeddings and predictions; counts read and
      held equal to those the code's rule predicts (one gather_mean /
      gather_max a MEAN / MAX layer; one gather_rows a block of an LSTM
-     layer, infer.card_block's blocks);
+     layer, infer.card_block's blocks; one pretransform a bfloat16 MEAN
+     layer);
    - embed-all time (host clock around a synchronised call, warm; median,
      min and max of 20, of 5 for LSTM), and the device's busy time by
      kernel over one embed-all (torch.profiler);
@@ -377,6 +378,16 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    as in phase 16, now also for gather_max, its gather_max_bwd (two rows:
    the tie split and the whole backward) and pair_scores: every launch
    shape of the five runs, on a cold L2.
+18. The bfloat16 pretransform (csrc/pretransform.cu), after phase 3:
+   the kernel against its plain version at serving's two MEAN layers on
+   config 5, [1M, 602] and [1M, 128] -> 256 (three_piece_check: each
+   element within one bfloat16 ulp plus 2^-20 of |h| @ |w|.T), with its
+   row (library_ms: the upcast, float32 SGEMM and cast it replaced;
+   bf16_mm_ms: a one-piece bfloat16 torch.mm); then a 1M-node MEAN
+   bfloat16 serving pass over a width-16 table: launches equal to one
+   pretransform and one gather_mean a layer, its table within a row gap
+   of 0.01 of the same pass through the float32 path, and the two passes
+   timed in turns.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -429,11 +440,13 @@ from graphsage_torch.microbench import (BF16_OPS_PER_S, F32_OPS_PER_S,
                                         HBM_BYTES_PER_S, cold_ms, cuda_ms,
                                         device_ms, times)
 from graphsage_torch.models import (GraphSageConfig, graphsage,
-                                    init_classifier, init_graphsage, lstm_agg)
+                                    init_classifier, init_graphsage, layers,
+                                    lstm_agg)
 from graphsage_torch.native import build as native_build
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.models.layers import mean_pretransform
 from graphsage_torch.ops import build, gather, scatter, sddmm
+from graphsage_torch.ops import pretransform as pt
 from graphsage_torch.entry import dryrun_multichip
 from graphsage_torch.parallel import comm, halo, multihost
 from graphsage_torch.parallel import mesh as pmesh
@@ -560,6 +573,28 @@ def keep_gathers(module, seen: list):
 def plain_take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """take_rows' plain version: indexing, differentiated by autograd."""
     return table[idx.long()]
+
+
+def plain_pretransform(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``ops.pretransform.pretransform``'s plain version on any device."""
+    return pt.pretransform_plain(h, pt.split_weight(w))
+
+
+@contextlib.contextmanager
+def routed_pretransforms(into: list):
+    """Records the calls of ``models.graphsage``'s mean_pretransform that
+    its rule sends to the pretransform kernel: a bfloat16 table in a call
+    autograd would not record.  One pretransform launch each."""
+    real = graphsage.mean_pretransform
+
+    def rec(w, h, gcn=False):
+        if h.dtype == torch.bfloat16 and not (torch.is_grad_enabled() and (
+                h.requires_grad or w.requires_grad)):
+            into.append(tuple(h.shape))
+        return real(w, h, gcn=gcn)
+
+    with patched(graphsage, mean_pretransform=rec):
+        yield
 
 
 @contextlib.contextmanager
@@ -739,7 +774,8 @@ def profile_device(fn, wall_ms: float, what: str = "embed_all_ms",
 def serving_launches(cfg: GraphSageConfig, lstm_hybrid: bool) -> dict:
     """The launches of one embeddings() call, from the code's rule: one
     gather_mean / gather_max a MEAN / MAX layer, and a gather_rows a block
-    of an LSTM layer (infer.card_block at the layer's input width)."""
+    of an LSTM layer (infer.card_block at the layer's input width); a
+    bfloat16 MEAN layer's pretransform one pretransform."""
     want = launch_counts()
     itemsize = graphsage.compute_dtype(cfg).itemsize
     for layer in range(cfg.num_layers):
@@ -750,6 +786,8 @@ def serving_launches(cfg: GraphSageConfig, lstm_hybrid: bool) -> dict:
             want["gather_rows"] += -(-NODES // block)
         else:
             want["gather_mean" if agg_func == "MEAN" else "gather_max"] += 1
+        if agg_func == "MEAN" and cfg.compute_dtype == "bfloat16":
+            want["pretransform"] += 1
     return want
 
 
@@ -869,10 +907,12 @@ def serve_config(tag: str, cfg: GraphSageConfig, params: dict,
 def plain_training():
     """Training through the plain versions on the card (the reference
     run): autograd differentiates them (max_aggregate_plain's amax splits
-    ties equally; the LSTM's slot gather is index_select)."""
+    ties equally; the LSTM's slot gather is index_select); a bfloat16
+    evaluation's pretransform takes the three pieces' plain product."""
     with patched(graphsage, mean_aggregate=agg.mean_aggregate_plain,
                  max_aggregate=agg.max_aggregate_plain,
                  take_rows=plain_take), \
+            patched(layers, pretransform=plain_pretransform), \
             patched(scatter, take_rows=plain_take), \
             patched(lstm_agg, gather_rows=gather.gather_rows_plain), \
             patched(sddmm, pair_scores=sddmm.dense_pair_scores):
@@ -914,7 +954,7 @@ def bf16_scatters(cfg: GraphSageConfig, n: int, u0: int,
 
 
 def compact_launches(cfg: GraphSageConfig, method: str, step_args: list,
-                     evals: int) -> dict:
+                     evals: int, pretransforms: int = 0) -> dict:
     """What the compact Trainer launches in a fit: per encode (each step,
     and each evaluation embedding) one aggregate kernel a layer
     (gather_mean, gather_max, or gather_rows for the LSTM's slot gather);
@@ -923,9 +963,11 @@ def compact_launches(cfg: GraphSageConfig, method: str, step_args: list,
     and for MAX one gather_max_bwd (the backward's tie split) a
     differentiated layer a step (every layer above the first: the first
     aggregates constant feature rows); in bfloat16, the backward's
-    scatter_rows by bf16_scatters."""
+    scatter_rows by bf16_scatters, and one pretransform for each of the
+    evaluations' pretransforms (``pretransforms``, routed_pretransforms'
+    count)."""
     steps = len(step_args)
-    want = launch_counts()
+    want = launch_counts(pretransform=pretransforms)
     kernel = {"MEAN": "gather_mean", "MAX": "gather_max",
               "LSTM": "gather_rows"}[cfg.agg_func]
     want[kernel] += cfg.num_layers * (steps + evals)
@@ -1070,17 +1112,18 @@ def train_method(method: str, ds, dev: torch.device, agg_func: str = "MEAN",
            f"{' gcn' if gcn else ''}{' bf16' if dtype == 'bfloat16' else ''}"
            f"]")
     tr = make_trainer(ds, method, dev, agg_func, gcn, dtype)
-    snaps, step_args = [], []
+    snaps, step_args, routed = [], [], []
     agg.reset_launches()
-    step_ms, fit_s = fit_timed(tr, before=lambda i: snaps.append(
-        param_snapshot(tr)), step_args=step_args)
+    with routed_pretransforms(routed):
+        step_ms, fit_s = fit_timed(tr, before=lambda i: snaps.append(
+            param_snapshot(tr)), step_args=step_args)
     launches = dict(agg.LAUNCHES)
     snaps.append(param_snapshot(tr))
     steps = len(step_ms)
     assert steps == TRAIN_NODES // B_SZ, steps
     val_f1 = tr.history[-1]["val_f1"]
     evals = 1 + ("test_f1" in tr.history[-1])
-    want = compact_launches(tr.mcfg, method, step_args, evals)
+    want = compact_launches(tr.mcfg, method, step_args, evals, len(routed))
     log(f"{tag} main path: Trainer.fit, {steps} steps + {evals} evaluation "
         f"embeddings in {fit_s:.3f} s; launches {launches}; predicted from "
         f"the code {want}")
@@ -4655,6 +4698,155 @@ def big_gather_rows(recs: dict, rows_from: dict) -> list:
     return rows
 
 
+# ------------------------------------------- phase 18: the pretransform
+
+PRETRANSFORM_SOURCE = "graphsage_torch/csrc/pretransform.cu"
+# serving's two MEAN layers on config 5: [1M, K] -> 2H = 256
+BIG_NODES, BIG_FEATS, BIG_CAP = 1_000_000, 602, 16
+
+
+def three_piece_check(name: str, got: torch.Tensor, want: torch.Tensor,
+                      h: torch.Tensor, w: torch.Tensor) -> tuple:
+    """The bfloat16 pretransform against its plain version: every element
+    within one bfloat16 ulp of the plain version's plus 2^-20 of
+    |h| @ |w|.T there (both sum the same exact float32 products, in other
+    orders).  Returns (max abs error, share of identical elements)."""
+    absprod = torch.matmul(h.float().abs(), w.float().abs().T)
+    diff = (got.float() - want.float()).abs()
+    excess = float((diff - bf16_ulp(want) - 2.0**-20 * absprod).max())
+    if excess > 0:
+        raise AssertionError(f"{name}: {excess} outside the three-piece "
+                             f"bound")
+    del absprod
+    return float(diff.max()), float((got == want).float().mean())
+
+
+def pretransform_row(label: str, h: torch.Tensor, w: torch.Tensor,
+                     launches: int) -> dict:
+    """The pretransform kernel against its plain version at one shape, and
+    its row.  Yardsticks: the path the kernel replaced (upcast, float32
+    SGEMM, cast: ``library_ms``) and a one-piece bfloat16 ``torch.mm``
+    (``bf16_mm_ms``, a product of bf16(w) alone, not the same function)."""
+    n, k = h.shape
+    p = w.shape[0]
+    pieces = pt.split_weight(w)
+    got = pt.pretransform(h, w)
+    torch.cuda.synchronize()
+    err, same = three_piece_check(f"pretransform {label}", got,
+                                  pt.pretransform_plain(h, pieces), h, w)
+    del got
+    ops = 3 * 2 * n * k * p           # the kernel's: three pieces
+    nbytes = (n * k + n * p + 3 * p * k) * 2
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    upcast = lambda: torch.matmul(h.float(), w.T).to(torch.bfloat16)
+    w16 = w.bfloat16()
+    bf16_mm = lambda: torch.mm(h, w16.T)
+    row = {
+        "name": f"pretransform ({label})",
+        "route": "cuda",
+        "source": PRETRANSFORM_SOURCE,
+        "replaces": "no TPU kernel: cuBLAS's float32 SGEMM and two casts",
+        "launches": launches,
+        "max_abs_err": err,
+        "identical": same,
+        **times(lambda: pt.pretransform(h, w), "pretransform_kernel",
+                library=upcast, reps=20),
+        "plain_ms": cuda_ms(lambda: pt.pretransform_plain(
+            h, pt.split_weight(w)), reps=3, warmup=1),
+        "bf16_mm_ms": cuda_ms(bf16_mm, reps=20),
+        "bf16_mm_device_ms": device_ms(bf16_mm),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    log(f"kernel {row['name']}: h {tuple(h.shape)} stride {h.stride(0)} "
+        f"bf16, w {tuple(w.shape)} f32, {ops} operations, {nbytes} bytes; "
+        f"{timing_note(row)} [library: upcast + float32 SGEMM + cast] "
+        f"bf16_mm_ms {row['bf16_mm_ms']:.6f} bf16_mm_device_ms "
+        f"{row['bf16_mm_device_ms']:.6f} max_abs_err {err} identical "
+        f"{same:.6f}")
+    return row
+
+
+def float32_pretransform(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The path a bfloat16 table took before the kernel: upcast, float32
+    product, cast (``layers.pretransform``'s stand-in for the A/B)."""
+    return torch.matmul(h.float(), w.float().T).to(h.dtype)
+
+
+def pretransform_phase(dev: torch.device, phase_mark=None) -> list:
+    """Phase 18: the bfloat16 pretransform kernel at serving's two MEAN
+    layers on config 5, [1M, 602] and [1M, 128] -> 256, against its plain
+    version with its row; then a 1M-node MEAN bfloat16 serving pass over a
+    width-16 table, launches counted (one pretransform and one gather_mean
+    a layer), its table against the same pass through the float32 path,
+    and the two passes timed in turns."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows = []
+    feats = torch.randn(BIG_NODES, BIG_FEATS, generator=gen,
+                        device=dev).bfloat16()
+    cfg = GraphSageConfig(num_layers=2, input_size=BIG_FEATS,
+                          out_size=HIDDEN, compute_dtype="bfloat16")
+    params = init_graphsage(torch.Generator().manual_seed(824), cfg)
+    params = {"layers": [{"weight": lay["weight"].to(dev)}
+                         for lay in params["layers"]]}
+    with torch.no_grad():
+        for layer, h in enumerate((feats, torch.randn(
+                BIG_NODES, HIDDEN, generator=gen, device=dev).bfloat16())):
+            w = params["layers"][layer]["weight"]
+            d = h.shape[1]
+            w_part = torch.cat([w[:, :d], w[:, d:]])
+            rows.append(pretransform_row(f"serving layer {layer + 1}, "
+                                         f"[{BIG_NODES}, {d}] -> "
+                                         f"{w_part.shape[0]}", h, w_part, 1))
+            del h
+    if phase_mark is not None:
+        phase_mark("phase 18: pretransform rows")
+
+    degrees = torch.randint(0, BIG_CAP + 1, (BIG_NODES,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    neighbors = torch.randint(0, BIG_NODES, (BIG_NODES, BIG_CAP),
+                              generator=gen, device=dev, dtype=torch.int32)
+    pad = PaddedAdjacency(neighbors=neighbors, degrees=degrees,
+                          true_degrees=None, truncated=True)
+
+    def embed_all():
+        return infer.full_graph_embeddings(params, cfg, feats, pad,
+                                           fetch=False, device=dev)
+
+    agg.reset_launches()
+    table = embed_all()
+    torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    want = launch_counts(pretransform=2, gather_mean=2)
+    log(f"[pretransform] 1M MEAN bf16 pass: launches {launches}, predicted "
+        f"{want}")
+    assert launches == want, (launches, want)
+    with patched(layers, pretransform=float32_pretransform):
+        ref = embed_all()
+    diff = (table.float() - ref.float()).norm(dim=1)
+    norms = ref.float().norm(dim=1)
+    gap = float((diff / torch.maximum(norms, norms.median())).max())
+    log(f"[pretransform] 1M MEAN bf16 pass against the float32 path: max "
+        f"abs diff {float((table.float() - ref.float()).abs().max())}, "
+        f"identical {float((table == ref).float().mean()):.6f}, worst row "
+        f"gap {gap:.3e}")
+    assert gap < 0.01, gap
+    del table, ref, diff, norms
+
+    def with_float32():
+        with patched(layers, pretransform=float32_pretransform):
+            return embed_all()
+
+    kernel_ms, float32_ms = in_turns(embed_all, with_float32, 5)
+    log(f"[pretransform] 1M MEAN bf16 pass, in turns: kernel "
+        f"{statistics.median(kernel_ms):.6f} ms (all {kernel_ms}), float32 "
+        f"path {statistics.median(float32_ms):.6f} ms (all {float32_ms})")
+    profile_device(embed_all, statistics.median(kernel_ms))
+    del feats, pad, neighbors, degrees
+    torch.cuda.empty_cache()
+    return rows
+
+
 def config5_phase(dev: torch.device, phase_mark) -> list:
     """Phase 14: config 5 through the four modules, in this process."""
     torch.cuda.empty_cache()
@@ -4741,7 +4933,8 @@ def config5_phase(dev: torch.device, phase_mark) -> list:
         srow, emb = infer_bench.serve_row(
             BIG_SERVE_ROW, ds, infer_bench.padded(ds, spec["width"]),
             spec["dtype"], spec["agg"], spec["note"], dev)
-    assert srow["launches"] == launch_counts(gather_mean=2), srow
+    assert srow["launches"] == launch_counts(gather_mean=2,
+                                             pretransform=2), srow
     assert emb.shape == (n, HIDDEN) and np.isfinite(emb).all()
     log(f"[config5] {json.dumps(srow)}")
     del emb
@@ -4901,6 +5094,9 @@ def run(dev: torch.device) -> int:
         rows.extend(kernel_rows)
     log(json.dumps({"serving": summaries}))
     phase_done("phase 3 (serving)")
+
+    rows.extend(pretransform_phase(dev, phase_done))
+    phase_done("phase 18 (the bfloat16 pretransform)")
 
     train_ds = dataclasses.replace(ds,
                                    train_nodes=ds.train_nodes[:TRAIN_NODES])

@@ -20,8 +20,12 @@ bfloat16 (the trainers round the float32 master weights with
 ``train.dense.cast_compute`` inside the loss), and the port upcasts them
 to float32 and takes a float32 ``torch.matmul``: the products of bfloat16
 numbers are exact in float32, so this is the same arithmetic with float32
-accumulation.  The classifier adds its bfloat16-rounded bias to the float32
-logits, as JAX's promotion does.  ``torch.backends.cuda.matmul.allow_tf32``
+accumulation.  MEAN's pretransform of a bfloat16 table, where autograd
+would not record it, multiplies the table by the float32 weight split
+exactly into three bfloat16 pieces (``ops.pretransform``), the same
+float32 products in another order of sums, without the upcast.  The
+classifier adds its bfloat16-rounded bias to the float32 logits, as JAX's
+promotion does.  ``torch.backends.cuda.matmul.allow_tf32``
 stays False (PyTorch's default) for float32 parity.
 
 The bfloat16 products that stay bfloat16 (the LSTM cell's gate GEMMs, the
@@ -44,6 +48,7 @@ from torch import nn
 
 from graphsage_torch.models.lstm_agg import LSTMAggregator
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
+from graphsage_torch.ops.pretransform import pretransform
 
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -85,7 +90,20 @@ def mean_pretransform(w: torch.Tensor, h: torch.Tensor,
     once.  Returns [N, H] for gcn, else [N, 2H] with the SELF columns in
     ``[:, :H]`` and the AGG columns in ``[:, H:]`` (the convention of
     ``graphsage_tpu/models/layers.py:40-59``).  ``w`` is the sage layer's
-    [H, 2D] (or [H, D] gcn) weight."""
+    [H, 2D] (or [H, D] gcn) weight.
+
+    A bfloat16 table in a call that autograd would not record (serving,
+    evaluation) takes ``ops.pretransform.pretransform``: the float32 weight
+    split exactly into three bfloat16 pieces, their products summed in
+    float32 (the tensor-core kernel on the card, the plain version on the
+    CPU).  Every other call, a float32 table or a differentiated one, takes
+    the float32 ``torch.matmul`` below."""
+    if h.dtype == torch.bfloat16 and not (
+            torch.is_grad_enabled() and (h.requires_grad or w.requires_grad)):
+        if not gcn:
+            d = h.shape[1]
+            w = torch.cat([w[:, :d], w[:, d:]], dim=0)      # [2H, D]
+        return pretransform(h, w)
     w = w.float()
     if not gcn:
         d = h.shape[1]

@@ -43,12 +43,13 @@ import torch
 from graphsage_torch.ops import build
 
 # Launches of each CUDA kernel (``pair_scores`` is ops/sddmm.py's,
-# ``gather_rows`` ops/gather.py's, ``scatter_rows`` ops/scatter.py's).  A
-# wrapper adds one where it launches its kernel and nowhere else; runs that
-# must show they went through the kernels set these to 0 before and read
-# them after.
+# ``gather_rows`` ops/gather.py's, ``scatter_rows`` ops/scatter.py's,
+# ``pretransform`` ops/pretransform.py's).  A wrapper adds one where it
+# launches its kernel and nowhere else; runs that must show they went
+# through the kernels set these to 0 before and read them after.
 LAUNCHES = {"gather_mean": 0, "gather_max": 0, "gather_max_bwd": 0,
-            "pair_scores": 0, "gather_rows": 0, "scatter_rows": 0}
+            "pair_scores": 0, "gather_rows": 0, "scatter_rows": 0,
+            "pretransform": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1

@@ -31,6 +31,7 @@ SOURCES = {
     "sddmm": _PKG / "csrc" / "sddmm.cu",
     "gather": _PKG / "csrc" / "gather.cu",
     "scatter": _PKG / "csrc" / "scatter.cu",
+    "pretransform": _PKG / "csrc" / "pretransform.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "graphsage_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -70,6 +71,14 @@ _SCATTER_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
 _SCRATCH_ARGS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
 _LATENCY_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int64, ctypes.c_void_p]
+# pretransform: (device, h, h_stride, pieces, z, N, K, P, bn, unit, stream);
+# its pack: (device, w, w_stride, out, P, K, bn, stream)
+_PRETRANSFORM_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      ctypes.c_void_p]
+_PACK_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
 _SIGNATURES = {
     "aggregate": {
@@ -90,6 +99,11 @@ _SIGNATURES = {
         "gs_scatter_rows": (_SCATTER_ARGS, ctypes.c_int),
         "gs_scatter_scratch": (_SCRATCH_ARGS, ctypes.c_int64),
         "gs_scatter_add_latency": (_LATENCY_ARGS, ctypes.c_int),
+        "gs_error_string": _ERROR_STRING,
+    },
+    "pretransform": {
+        "gs_pretransform": (_PRETRANSFORM_ARGS, ctypes.c_int),
+        "gs_pretransform_pack": (_PACK_ARGS, ctypes.c_int),
         "gs_error_string": _ERROR_STRING,
     },
 }

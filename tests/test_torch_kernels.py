@@ -30,10 +30,12 @@ import re
 import numpy as np
 import pytest
 import torch
+from test_torch_pretransform import assert_three_piece_bar
 
 from graphsage_torch.ops import aggregate as agg
 from graphsage_torch.ops import build
 from graphsage_torch.ops import gather
+from graphsage_torch.ops import pretransform as pt
 from graphsage_torch.ops import scatter
 from graphsage_torch.ops import sddmm
 
@@ -107,7 +109,8 @@ def test_cpu_calls_take_the_plain_version_and_count_nothing():
     agg.reset_launches()
     assert agg.LAUNCHES == {"gather_mean": 0, "gather_max": 0,
                             "gather_max_bwd": 0, "pair_scores": 0,
-                            "gather_rows": 0, "scatter_rows": 0}
+                            "gather_rows": 0, "scatter_rows": 0,
+                            "pretransform": 0}
 
 
 def _bwd_args(**change):
@@ -140,7 +143,7 @@ def test_gather_max_bwd_wrapper_refuses_what_the_kernel_does_not_take(
 def test_build_targets_hopper_into_the_build_directory():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert set(build.SOURCES) == {"aggregate", "sddmm", "gather",
-                                  "scatter"}
+                                  "scatter", "pretransform"}
     for name in build.SOURCES:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR and path.suffix == ".so"
@@ -1541,3 +1544,111 @@ def test_collectives_at_world_1_on_nccl(dtype):
     finally:
         if owned:
             multihost.shutdown()
+
+
+# ------------------------------------------- the bfloat16 pretransform
+
+# The kernel against the plain version (cuBLAS's float32 product of the
+# pieces): each element within the three-piece bar of
+# tests/test_torch_pretransform.py; both round the same exact products'
+# float32 sums, in other orders (the tensor cores add a k-step's products
+# together, then into the sum), so fewer elements than on the CPU are
+# identical: 99.88% at [1M, 602] on an H100.
+CARD_IDENTICAL = 0.995
+
+# (rows, K, P, columns of h before its first: a strided view when > 0)
+PRETRANSFORM_CASES = {
+    "layer1_602": (1037, 602, 256, 0),     # 4-byte units, a K tail of 26
+    "layer2_128": (1037, 128, 256, 0),     # 16-byte units
+    "k10": (300, 10, 256, 0),              # one partial slice
+    "cora1433": (257, 1433, 256, 0),       # odd K: 2-byte units
+    "pubmed500": (130, 500, 256, 0),       # 8-byte units
+    "gcn": (1000, 602, 128, 0),            # a 128-wide tile
+    "narrow": (129, 64, 32, 0),            # a 64-wide tile, P < 64
+    "wide384": (200, 96, 384, 0),          # two column tiles
+    "one_row": (1, 602, 256, 0),
+    "view": (515, 128, 256, 3),            # row stride 131, 2-byte units
+    "p100": (300, 64, 100, 0),             # rows of z not 16-byte multiples
+    "p_odd": (200, 64, 37, 0),             # an odd P
+}
+
+
+def _pretransform_inputs(n, k, p, skip, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(n, k + skip, generator=gen, device=dev).bfloat16()
+    a = math.sqrt(6.0 / (2 * k + p // 2))
+    w = (torch.rand(p, k, generator=gen, device=dev) * 2 - 1) * a
+    return h[:, skip:], w
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(PRETRANSFORM_CASES))
+def test_pretransform_kernel_matches_plain_on_card(case):
+    dev = _card()
+    h, w = _pretransform_inputs(*PRETRANSFORM_CASES[case], dev)
+    before = agg.LAUNCHES["pretransform"]
+    got = pt.pretransform(h, w)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["pretransform"] == before + 1
+    want = pt.pretransform_plain(h, pt.split_weight(w))
+    assert_three_piece_bar(got, want, h, w, identical=CARD_IDENTICAL)
+    # the kernel sums each row alike wherever the row lies
+    assert torch.equal(pt.pretransform(h[1:], w), got[1:])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,k", [(256, 602), (128, 10), (100, 129),
+                                 (384, 64)])
+def test_pretransform_pack_kernel_matches_split_and_pack_on_card(p, k):
+    """The card's split of the weight into the kernel's layout equals
+    pack_pieces(split_weight(w)) bit for bit, signed zeros, tiny and huge
+    values and values just below a power of two included."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(p + k)
+    w = torch.randn(p, k, generator=gen) * 0.1
+    special = torch.tensor([0.0, -0.0, 1e-30, -1e30, 2.0 - 2.0**-23,
+                            0.5 - 2.0**-25, 2.0**-110, 3.0e38])
+    w.view(-1)[:special.numel()] = special
+    w = w.to(dev)
+    bn = pt.pretransform_plan(0, 2 * k, 2 * k, p)[1]
+    lib = build.load_library("pretransform")
+    want = pt.pack_pieces(pt.split_weight(w), bn)
+    got = torch.empty(want.numel(), dtype=torch.bfloat16, device=dev)
+    rc = lib.gs_pretransform_pack(
+        dev.index or 0, w.data_ptr(), w.stride(0), got.data_ptr(), p, k, bn,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(got.view(torch.int16),
+                       want.reshape(-1).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [602, 128])
+def test_pretransform_kernel_at_the_serving_shapes_on_card(k):
+    """[1M, K] -> 256, serving's two MEAN layers on config 5."""
+    dev = _card()
+    h, w = _pretransform_inputs(1_000_000, k, 256, 0, dev, seed=k)
+    got = pt.pretransform(h, w)
+    want = pt.pretransform_plain(h, pt.split_weight(w))
+    assert_three_piece_bar(got, want, h, w, identical=CARD_IDENTICAL)
+
+
+@pytest.mark.gpu
+def test_mean_pretransform_takes_the_kernel_where_autograd_would_not_record(
+        ):
+    from graphsage_torch.models.layers import mean_pretransform
+    dev = _card()
+    h, w = _pretransform_inputs(300, 64, 128, 0, dev)
+    w = torch.cat([w, w.flip(0)], dim=1)[:64]           # [H, 2D]
+    before = agg.LAUNCHES["pretransform"]
+    with torch.no_grad():
+        mean_pretransform(w, h.float())                 # a float32 table
+    h.requires_grad_(True)
+    mean_pretransform(w, h)                             # differentiated
+    assert agg.LAUNCHES["pretransform"] == before
+    with torch.no_grad():
+        z = mean_pretransform(w, h)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["pretransform"] == before + 1
+    assert z.shape == (300, 128) and z.dtype == torch.bfloat16
