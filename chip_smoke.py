@@ -388,6 +388,16 @@ Phases, each of which fails the run (non-zero exit) if its check fails:
    pretransform and one gather_mean a layer, its table within a row gap
    of 0.01 of the same pass through the float32 path, and the two passes
    timed in turns.
+19. The pool transform's bias-and-relu epilogue, after phase 18: the
+   epilogue kernel against pretransform_plain with the bias at serving's
+   two POOL layers on sage_pool_reddit, [232965, 602] and [232965, 256]
+   -> 512, under phase 18's bar, with its row (library_ms: upcast, float32
+   SGEMM, bias, relu and cast; the bound counts the algorithm's products
+   and bytes, as the benchmark's pool_roofline.embed does); then a
+   232,965-node POOL bfloat16 serving pass over a width-25 table: launches
+   equal to one pretransform and one gather_max a layer, its table within
+   a row gap of 0.01 of the same pass through the float32 pool transform,
+   and the two passes timed in turns.
 
 Tolerances: float32 rtol=atol=1e-5; bfloat16 within 2 bf16 ulps of the
 reference value (the two versions may sum in different orders); MAX and the
@@ -4722,55 +4732,76 @@ def three_piece_check(name: str, got: torch.Tensor, want: torch.Tensor,
 
 
 def pretransform_row(label: str, h: torch.Tensor, w: torch.Tensor,
-                     launches: int) -> dict:
+                     launches: int, bias: torch.Tensor | None = None
+                     ) -> dict:
     """The pretransform kernel against its plain version at one shape, and
     its row.  Yardsticks: the path the kernel replaced (upcast, float32
     SGEMM, cast: ``library_ms``) and a one-piece bfloat16 ``torch.mm``
-    (``bf16_mm_ms``, a product of bf16(w) alone, not the same function)."""
+    (``bf16_mm_ms``, a product of bf16(w) alone, not the same function).
+    With ``bias`` the row is the bias-and-relu epilogue's: the library
+    path adds the bias and takes the relu before the cast, and the bound
+    counts the algorithm's products and bytes (one float32 weight and
+    bias), as the benchmark's pool_roofline.embed does."""
     n, k = h.shape
     p = w.shape[0]
     pieces = pt.split_weight(w)
-    got = pt.pretransform(h, w)
+    got = pt.pretransform(h, w, bias=bias)
     torch.cuda.synchronize()
     err, same = three_piece_check(f"pretransform {label}", got,
-                                  pt.pretransform_plain(h, pieces), h, w)
+                                  pt.pretransform_plain(h, pieces, bias),
+                                  h, w)
     del got
-    ops = 3 * 2 * n * k * p           # the kernel's: three pieces
-    nbytes = (n * k + n * p + 3 * p * k) * 2
+    if bias is None:
+        ops = 3 * 2 * n * k * p           # the kernel's: three pieces
+        nbytes = (n * k + n * p + 3 * p * k) * 2
+    else:
+        ops = 2 * n * k * p
+        nbytes = (n * k + n * p) * 2 + (p * k + p) * 4
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    upcast = lambda: torch.matmul(h.float(), w.T).to(torch.bfloat16)
+    upcast = lambda: float32_pretransform(h, w, bias)
     w16 = w.bfloat16()
     bf16_mm = lambda: torch.mm(h, w16.T)
+    kernel = ("pretransform_kernel" if bias is None
+              else "pretransform_bias_relu_kernel")
     row = {
-        "name": f"pretransform ({label})",
+        "name": f"{kernel.removesuffix('_kernel')} ({label})",
         "route": "cuda",
         "source": PRETRANSFORM_SOURCE,
-        "replaces": "no TPU kernel: cuBLAS's float32 SGEMM and two casts",
+        "replaces": ("no TPU kernel: cuBLAS's float32 SGEMM and two casts"
+                     if bias is None else "no TPU kernel: the JAX package "
+                     "has no pool aggregator"),
         "launches": launches,
         "max_abs_err": err,
         "identical": same,
-        **times(lambda: pt.pretransform(h, w), "pretransform_kernel",
+        **times(lambda: pt.pretransform(h, w, bias=bias), kernel,
                 library=upcast, reps=20),
         "plain_ms": cuda_ms(lambda: pt.pretransform_plain(
-            h, pt.split_weight(w)), reps=3, warmup=1),
+            h, pt.split_weight(w), bias), reps=3, warmup=1),
         "bf16_mm_ms": cuda_ms(bf16_mm, reps=20),
         "bf16_mm_device_ms": device_ms(bf16_mm),
         "bound_ms": max(t_bytes, t_ops) * 1e3,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
     }
+    library = ("upcast + float32 SGEMM + cast" if bias is None else
+               "upcast + float32 SGEMM + bias + relu + cast")
     log(f"kernel {row['name']}: h {tuple(h.shape)} stride {h.stride(0)} "
         f"bf16, w {tuple(w.shape)} f32, {ops} operations, {nbytes} bytes; "
-        f"{timing_note(row)} [library: upcast + float32 SGEMM + cast] "
+        f"{timing_note(row)} [library: {library}] "
         f"bf16_mm_ms {row['bf16_mm_ms']:.6f} bf16_mm_device_ms "
         f"{row['bf16_mm_device_ms']:.6f} max_abs_err {err} identical "
         f"{same:.6f}")
     return row
 
 
-def float32_pretransform(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def float32_pretransform(h: torch.Tensor, w: torch.Tensor,
+                         bias: torch.Tensor | None = None) -> torch.Tensor:
     """The path a bfloat16 table took before the kernel: upcast, float32
-    product, cast (``layers.pretransform``'s stand-in for the A/B)."""
-    return torch.matmul(h.float(), w.float().T).to(h.dtype)
+    product (plus ``bias``, then relu, where given), cast
+    (``layers.pretransform``'s stand-in for the A/B)."""
+    z = torch.matmul(h.float(), w.float().T)
+    if bias is not None:
+        z = torch.relu(z + bias.float())
+    return z.to(h.dtype)
 
 
 def pretransform_phase(dev: torch.device, phase_mark=None) -> list:
@@ -4841,6 +4872,96 @@ def pretransform_phase(dev: torch.device, phase_mark=None) -> list:
     log(f"[pretransform] 1M MEAN bf16 pass, in turns: kernel "
         f"{statistics.median(kernel_ms):.6f} ms (all {kernel_ms}), float32 "
         f"path {statistics.median(float32_ms):.6f} ms (all {float32_ms})")
+    profile_device(embed_all, statistics.median(kernel_ms))
+    del feats, pad, neighbors, degrees
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------- phase 19: the pool transform's epilogue
+
+# serving's two POOL layers on sage_pool_reddit: [232965, K] -> P = 512
+POOL_NODES, POOL_HIDDEN, POOL_SIZE, POOL_CAP = 232_965, 256, 512, 25
+
+
+def pool_phase(dev: torch.device, phase_mark=None) -> list:
+    """Phase 19: the pretransform's bias-and-relu epilogue at serving's two
+    POOL layers on sage_pool_reddit, [232965, 602] and [232965, 256] ->
+    512, against its plain version with its row; then a 232,965-node POOL
+    bfloat16 serving pass over a width-25 table, launches counted (one
+    pretransform and one gather_max a layer), its table against the same
+    pass through the float32 pool transform, and the two passes timed in
+    turns.  The biases are drawn (``init_pool``'s are zero), so that the
+    epilogue's sum is tested."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rows = []
+    feats = torch.randn(POOL_NODES, BIG_FEATS, generator=gen,
+                        device=dev).bfloat16()
+    cfg = GraphSageConfig(num_layers=2, input_size=BIG_FEATS,
+                          out_size=POOL_HIDDEN, agg_func="POOL",
+                          pool_size=POOL_SIZE, compute_dtype="bfloat16")
+    params = init_graphsage(torch.Generator().manual_seed(824), cfg)
+    params = {"layers": [{"weight": lay["weight"].to(dev)}
+                         for lay in params["layers"]],
+              "pool": [{"weight": mlp["weight"].to(dev),
+                        "bias": 0.1 * torch.randn(POOL_SIZE, generator=gen,
+                                                  device=dev)}
+                       for mlp in params["pool"]]}
+    with torch.no_grad():
+        for layer, h in enumerate((feats, torch.randn(
+                POOL_NODES, POOL_HIDDEN, generator=gen,
+                device=dev).bfloat16())):
+            mlp = params["pool"][layer]
+            rows.append(pretransform_row(
+                f"serving POOL layer {layer + 1}, [{POOL_NODES}, "
+                f"{h.shape[1]}] -> {POOL_SIZE}", h, mlp["weight"], 1,
+                bias=mlp["bias"]))
+            del h
+    if phase_mark is not None:
+        phase_mark("phase 19: pretransform_bias_relu rows")
+
+    degrees = torch.randint(0, POOL_CAP + 1, (POOL_NODES,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    neighbors = torch.randint(0, POOL_NODES, (POOL_NODES, POOL_CAP),
+                              generator=gen, device=dev, dtype=torch.int32)
+    pad = PaddedAdjacency(neighbors=neighbors, degrees=degrees,
+                          true_degrees=None, truncated=True)
+
+    def embed_all():
+        return infer.full_graph_embeddings(params, cfg, feats, pad,
+                                           fetch=False, device=dev)
+
+    embed_all()                                  # warm
+    torch.cuda.synchronize()
+    agg.reset_launches()
+    table = embed_all()
+    torch.cuda.synchronize()
+    launches = dict(agg.LAUNCHES)
+    want = launch_counts(pretransform=2, gather_max=2)
+    log(f"[pool] {POOL_NODES}-node POOL bf16 pass: launches {launches}, "
+        f"predicted {want}")
+    assert launches == want, (launches, want)
+    with patched(layers, pretransform=float32_pretransform):
+        ref = embed_all()
+    diff = (table.float() - ref.float()).norm(dim=1)
+    norms = ref.float().norm(dim=1)
+    gap = float((diff / torch.maximum(norms, norms.median())).max())
+    log(f"[pool] POOL bf16 pass against the float32 pool transform: max "
+        f"abs diff {float((table.float() - ref.float()).abs().max())}, "
+        f"identical {float((table == ref).float().mean()):.6f}, worst row "
+        f"gap {gap:.3e}")
+    assert gap < 0.01, gap
+    del table, ref, diff, norms
+
+    def with_float32():
+        with patched(layers, pretransform=float32_pretransform):
+            return embed_all()
+
+    kernel_ms, float32_ms = in_turns(embed_all, with_float32, 5)
+    log(f"[pool] POOL bf16 pass, in turns: epilogue kernel "
+        f"{statistics.median(kernel_ms):.6f} ms (all {kernel_ms}), float32 "
+        f"pool transform {statistics.median(float32_ms):.6f} ms (all "
+        f"{float32_ms})")
     profile_device(embed_all, statistics.median(kernel_ms))
     del feats, pad, neighbors, degrees
     torch.cuda.empty_cache()
@@ -5097,6 +5218,9 @@ def run(dev: torch.device) -> int:
 
     rows.extend(pretransform_phase(dev, phase_done))
     phase_done("phase 18 (the bfloat16 pretransform)")
+
+    rows.extend(pool_phase(dev, phase_done))
+    phase_done("phase 19 (the pool transform's epilogue)")
 
     train_ds = dataclasses.replace(ds,
                                    train_nodes=ds.train_nodes[:TRAIN_NODES])

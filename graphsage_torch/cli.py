@@ -13,8 +13,9 @@ DIR`` writes the best-val model as a serving bundle that
     python -m graphsage_torch.cli --dataSet powerlaw:2000:10000 \
         --pipeline cached --table_cap 8 --learn_method plus_unsup --epochs 2
 
-``--agg_func MEAN|MAX|LSTM`` trains on ``--pipeline compact`` (the all-LSTM
-model shuffles each row's slots).  ``--pipeline cached``
+``--agg_func MEAN|MAX|LSTM|POOL`` trains on ``--pipeline compact`` (the
+all-LSTM model shuffles each row's slots; POOL, GraphSAGE-pool, takes
+``--pool_size`` and is refused by every other pipeline).  ``--pipeline cached``
 (``train.CachedTrainer``) takes ``--table_cap``, ``--refresh_every``,
 ``--no_extend`` and ``--lstm_hybrid``, and trains MEAN, MAX and, with
 ``--agg_func LSTM --lstm_hybrid``, the cached-LSTM hybrid, whose ``--export``
@@ -77,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     # reference-compatible flags (src/main.py:14-26)
     p.add_argument("--dataSet", type=str, default="cora")
     p.add_argument("--agg_func", type=str, default="MEAN",
-                   choices=["MEAN", "MAX", "LSTM"])
+                   choices=["MEAN", "MAX", "LSTM", "POOL"])
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--b_sz", type=int, default=20)
     p.add_argument("--seed", type=int, default=824)
@@ -115,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cached pipeline: plain fixed-size supervised "
                         "batches instead of the reference's pair-extended "
                         "batches")
+    p.add_argument("--pool_size", type=int, default=512,
+                   help="--agg_func POOL: the pool MLP's width (the "
+                        "authors' 512 small, 1024 big)")
     p.add_argument("--fanout", type=int, default=10)
     p.add_argument("--num_layers", type=int, default=None,
                    help="override config setting.num_layers (default 2)")
@@ -212,7 +216,8 @@ def _run(args, device, rank: int, world: int):
     mcfg = GraphSageConfig(num_layers=num_layers, input_size=ds.feature_dim,
                            out_size=hidden, gcn=args.gcn,
                            agg_func=args.agg_func,
-                           compute_dtype=args.compute_dtype)
+                           compute_dtype=args.compute_dtype,
+                           pool_size=args.pool_size)
     tcfg = TrainConfig(
         learn_method=args.learn_method, unsup_loss=args.unsup_loss,
         b_sz=args.b_sz, epochs=args.epochs, lr=args.lr, seed=args.seed,

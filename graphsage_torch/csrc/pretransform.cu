@@ -1,10 +1,16 @@
 // MEAN's pretransform z = h @ W_part^T on the tensor cores, for Hopper
-// (sm_90a).  Built by graphsage_torch/ops/build.py with
+// (sm_90a), and the pool transform of GraphSAGE-pool, z = relu(h @ W_pool^T
+// + b), the same product with a bias-and-relu epilogue.  Built by
+// graphsage_torch/ops/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC
 // and bound with ctypes (plain C interface below); the Python wrapper is
 // graphsage_torch/ops/pretransform.py::pretransform, which splits the weight
 // and chooses the launch plan (pretransform.py::pretransform_plan).
+// gs_pretransform launches pretransform_kernel (no epilogue: MEAN);
+// gs_pretransform_bias_relu launches pretransform_bias_relu_kernel, the same
+// body whose epilogue adds a float32 bias to each column's float32 sum and
+// takes the relu before the one rounding to bfloat16.
 //
 // Replaces no TPU kernel: the JAX package leaves this product to XLA
 // (jnp.dot of the bfloat16 table and the float32 weight with float32
@@ -71,7 +77,10 @@
 //   (rows past N and columns past P skipped) and release the stage.  z is
 //   [N, P] contiguous, the SELF columns first.  A z whose rows are not
 //   16-byte multiples takes each thread's pairs of columns straight from
-//   its registers.
+//   its registers.  With the bias-and-relu epilogue each sum first becomes
+//   relu(sum + bias[column]) in float32 (the bias read through the
+//   read-only cache, a value a column), so z is rounded once, as the plain
+//   version rounds relu(h @ w^T + b).
 // Why a producer warpgroup: at [1M, 602] on the H100 the loads alone take
 // 1.41 ms and the multiplications alone 1.27 ms; two warpgroups that both
 // loaded and multiplied took 2.39 ms, this kernel 2.24-2.29 ms (PERF.md).
@@ -280,7 +289,23 @@ struct Args {
   int n, k, p;
   int kt, ct;             // slices of K, tiles of z's columns
   int staged;             // z's rows take 16-byte stores (p % 8 == 0)
+  const float* bias;      // float32 [p]: the epilogue's, or null
 };
+
+// the epilogue of a pair of columns (col, col + 1) of one row: nothing, or
+// relu(sum + bias) with NaN kept, as torch.relu keeps it
+template <bool BIAS_RELU>
+__device__ __forceinline__ void epilogue(float& v0, float& v1, int col,
+                                         const Args& a) {
+  if constexpr (BIAS_RELU) {
+    const float b0 = col < a.p ? __ldg(a.bias + col) : 0.0f;
+    const float b1 = col + 1 < a.p ? __ldg(a.bias + col + 1) : 0.0f;
+    v0 += b0;
+    v1 += b1;
+    v0 = v0 < 0.0f ? 0.0f : v0;
+    v1 = v1 < 0.0f ? 0.0f : v1;
+  }
+}
 
 // where byte `byte` of row `row` of a BN-wide bfloat16 tile of z lies in
 // the staging buffer: 16-byte chunks swizzled by the row, so that the
@@ -371,9 +396,8 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const char* src,
 
 constexpr int AHEAD = 3;   // slices ahead whose rows of h go into L2
 
-template <int BN, int UNIT>
-__global__ void __launch_bounds__(THREADS, 1)
-    pretransform_kernel(const Args a) {
+template <int BN, int UNIT, bool BIAS_RELU>
+__device__ __forceinline__ void pretransform_body(const Args& a) {
   constexpr int NREG = BN / 2;
   constexpr int STAGE = Plan<BN>::STAGE_BYTES;
   constexpr int B_BYTES = Plan<BN>::B_BYTES;
@@ -507,10 +531,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int byte = j * 16 + (lane & 3) * 4;
-          st_shared_pair(out + staged<BN>(r, byte), acc[4 * j],
-                         acc[4 * j + 1]);
-          st_shared_pair(out + staged<BN>(r + 8, byte), acc[4 * j + 2],
-                         acc[4 * j + 3]);
+          float v0 = acc[4 * j], v1 = acc[4 * j + 1];
+          float v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+          epilogue<BIAS_RELU>(v0, v1, col0 + byte / 2, a);
+          epilogue<BIAS_RELU>(v2, v3, col0 + byte / 2, a);
+          st_shared_pair(out + staged<BN>(r, byte), v0, v1);
+          st_shared_pair(out + staged<BN>(r + 8, byte), v2, v3);
         }
         asm volatile("bar.sync 1, 256;\n" ::: "memory");
         constexpr int ROW_CHUNKS = BN / 8;
@@ -527,11 +553,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
         for (int j = 0; j < BN / 8; ++j) {
           const int col = col0 + j * 8 + (lane & 3) * 2;
-          if (row0 + r < a.n)
-            store(a.z, row0 + r, col, acc[4 * j], acc[4 * j + 1], a);
-          if (row0 + r + 8 < a.n)
-            store(a.z, row0 + r + 8, col, acc[4 * j + 2], acc[4 * j + 3],
-                  a);
+          float v0 = acc[4 * j], v1 = acc[4 * j + 1];
+          float v2 = acc[4 * j + 2], v3 = acc[4 * j + 3];
+          epilogue<BIAS_RELU>(v0, v1, col, a);
+          epilogue<BIAS_RELU>(v2, v3, col, a);
+          if (row0 + r < a.n) store(a.z, row0 + r, col, v0, v1, a);
+          if (row0 + r + 8 < a.n) store(a.z, row0 + r + 8, col, v2, v3, a);
         }
       }
       mbar_arrive(bars + 16 + 8 * s);
@@ -540,19 +567,35 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// MEAN's pretransform: the body with no epilogue
+template <int BN, int UNIT>
+__global__ void __launch_bounds__(THREADS, 1)
+    pretransform_kernel(const Args a) {
+  pretransform_body<BN, UNIT, false>(a);
+}
+
+// the pool transform: the body with the bias-and-relu epilogue
+template <int BN, int UNIT>
+__global__ void __launch_bounds__(THREADS, 1)
+    pretransform_bias_relu_kernel(const Args a) {
+  pretransform_body<BN, UNIT, true>(a);
+}
+
 template <int BN, int UNIT>
 int launch(const Args& a, int device, cudaStream_t stream) {
   constexpr int smem = Plan<BN>::SMEM_BYTES;
+  const auto kernel = a.bias != nullptr
+                          ? pretransform_bias_relu_kernel<BN, UNIT>
+                          : pretransform_kernel<BN, UNIT>;
   cudaError_t err = cudaFuncSetAttribute(
-      pretransform_kernel<BN, UNIT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (a.n + BM - 1) / BM * a.ct;
   const int grid = tiles < sms ? tiles : sms;
-  pretransform_kernel<BN, UNIT><<<grid, THREADS, smem, stream>>>(a);
+  kernel<<<grid, THREADS, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -609,6 +652,42 @@ __global__ void pack_kernel(const float* __restrict__ w, int64_t w_stride,
   }
 }
 
+// the checks and the launch of gs_pretransform and gs_pretransform_bias_relu
+int pretransform_launch(int device, const void* h, long long h_stride,
+                        const void* pieces, void* z, int n, int k, int p,
+                        int bn, int unit, const float* bias, void* stream) {
+  const int64_t stride_bytes = static_cast<int64_t>(h_stride) * 2;
+  if (!(bn == 64 || bn == 128 || bn == 256) ||
+      !(unit == 16 || unit == 8 || unit == 4 || unit == 2) || n < 1 ||
+      k < 1 || p < 1 || reinterpret_cast<uintptr_t>(h) % unit != 0 ||
+      stride_bytes % unit != 0 || (2 * static_cast<int64_t>(k)) % unit != 0 ||
+      reinterpret_cast<uintptr_t>(pieces) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(z) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Args a{static_cast<const char*>(h),
+               stride_bytes,
+               static_cast<const char*>(pieces),
+               static_cast<__nv_bfloat16*>(z),
+               n,
+               k,
+               p,
+               (k + BK - 1) / BK,
+               (p + bn - 1) / bn,
+               p % 8 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0,
+               bias};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+    case 256:
+      return launch_unit<256>(a, unit, device, s);
+    case 128:
+      return launch_unit<128>(a, unit, device, s);
+    default:
+      return launch_unit<64>(a, unit, device, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -636,43 +715,28 @@ int gs_pretransform_pack(int device, const void* w, long long w_stride,
 }
 
 // h: bfloat16 [n, k], rows h_stride elements apart, unit column stride.
-// pieces: gs_pretransform_pack's layout for this bn, 16-byte aligned.  z: bfloat16 [n, p], contiguous, 4-byte aligned.  bn (64,
-// 128 or 256) and unit (16, 8, 4 or 2 bytes, dividing h's address, its row
-// stride in bytes and its row width in bytes) are the launch plan.
-// Launches on `stream` of `device` and returns cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for a plan or layout it does not take.
+// pieces: gs_pretransform_pack's layout for this bn, 16-byte aligned.  z:
+// bfloat16 [n, p], contiguous, 4-byte aligned.  bn (64, 128 or 256) and unit
+// (16, 8, 4 or 2 bytes, dividing h's address, its row stride in bytes and its
+// row width in bytes) are the launch plan.  Launches on `stream` of `device`
+// and returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue
+// for a plan or layout it does not take.
 int gs_pretransform(int device, const void* h, long long h_stride,
                     const void* pieces, void* z, int n, int k, int p, int bn,
                     int unit, void* stream) {
-  const int64_t stride_bytes = static_cast<int64_t>(h_stride) * 2;
-  if (!(bn == 64 || bn == 128 || bn == 256) ||
-      !(unit == 16 || unit == 8 || unit == 4 || unit == 2) || n < 1 ||
-      k < 1 || p < 1 || reinterpret_cast<uintptr_t>(h) % unit != 0 ||
-      stride_bytes % unit != 0 || (2 * static_cast<int64_t>(k)) % unit != 0 ||
-      reinterpret_cast<uintptr_t>(pieces) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(z) % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const Args a{static_cast<const char*>(h),
-               stride_bytes,
-               static_cast<const char*>(pieces),
-               static_cast<__nv_bfloat16*>(z),
-               n,
-               k,
-               p,
-               (k + BK - 1) / BK,
-               (p + bn - 1) / bn,
-               p % 8 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-    case 256:
-      return launch_unit<256>(a, unit, device, s);
-    case 128:
-      return launch_unit<128>(a, unit, device, s);
-    default:
-      return launch_unit<64>(a, unit, device, s);
-  }
+  return pretransform_launch(device, h, h_stride, pieces, z, n, k, p, bn,
+                             unit, nullptr, stream);
+}
+
+// gs_pretransform with the epilogue: z = relu(h @ w^T + bias), bias float32
+// [p], contiguous and not null.
+int gs_pretransform_bias_relu(int device, const void* h, long long h_stride,
+                              const void* pieces, void* z, int n, int k,
+                              int p, int bn, int unit, const void* bias,
+                              void* stream) {
+  if (bias == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return pretransform_launch(device, h, h_stride, pieces, z, n, k, p, bn,
+                             unit, static_cast<const float*>(bias), stream);
 }
 
 const char* gs_error_string(int code) {

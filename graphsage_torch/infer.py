@@ -4,7 +4,10 @@ Port of ``graphsage_tpu/infer.py``.  Every node is propagated one layer at a
 time over the full padded adjacency (all true neighbours, no sampling), so
 two calls give bit-identical embeddings.  MEAN layers use the pretransform
 (transform the [N, D] table once by the layer weight, then average H-wide
-rows); MAX and LSTM layers aggregate the raw table, then transform.  A
+rows); MAX and LSTM layers aggregate the raw table, then transform; a POOL
+layer puts the whole table through its pool MLP once (on the card one
+``pretransform`` launch with the bias-and-relu epilogue), takes the max over
+the P-wide pooled rows, then transforms.  A
 cached-LSTM-hybrid model (``lstm_hybrid=True``) aggregates layer 1 with
 MEAN and the layers above with their LSTM cells, the topology it was
 trained with.
@@ -45,9 +48,10 @@ import torch
 from graphsage_torch.convert import (flatten_params, params_from_jax,
                                      params_to_numpy, unflatten_params)
 from graphsage_torch.data.graph import PaddedAdjacency
-from graphsage_torch.models.graphsage import GraphSageConfig, compute_dtype
+from graphsage_torch.models.graphsage import (GraphSageConfig, compute_dtype,
+                                              refuse_pool)
 from graphsage_torch.models.layers import (classifier_apply,
-                                           mean_pretransform,
+                                           mean_pretransform, pool_transform,
                                            sage_layer_apply)
 from graphsage_torch.models.lstm_agg import lstm_aggregate
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
@@ -91,8 +95,8 @@ def _pick_block(n: int, width: int, gather_dim: int, itemsize: int,
 
 def card_block(agg_func: str, n: int, slots: int, width: int,
                itemsize: int, requested: int | None = None) -> int:
-    """Rows a block of one layer on the card: all ``n`` for MEAN and MAX
-    (one kernel launch), and for LSTM the ``_pick_block`` budget over the
+    """Rows a block of one layer on the card: all ``n`` for MEAN, MAX and
+    POOL (one kernel launch), and for LSTM the ``_pick_block`` budget over the
     layer's [block, slots, width] slot sequence (or ``requested``)."""
     if agg_func != "LSTM":
         return max(n, 1)
@@ -115,7 +119,10 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
     the card the caller passes :func:`card_block`'s.  Spans: one
     ``serve.transform`` and one ``serve.aggregate`` a block (on the card a
     layer, but LSTM's); MEAN's pretransform, one GEMM over every row, is
-    timed on the device too."""
+    timed on the device too, as are POOL's ``serve.pool`` (the pool MLP
+    over every row of h, before the blocks) and its ``serve.transform`` (the
+    sage layer after the max; POOL's pass is device-bound, where MAX's and
+    LSTM's events would time a stream waiting on the host)."""
     w = params["layers"][layer]["weight"]
     hdim = w.shape[0]
     n = idx.shape[0]
@@ -138,16 +145,22 @@ def _layer_full(cfg: GraphSageConfig, params: dict, layer: int,
                        for r in rows]
             return _cat_rows(out)
 
-    if agg_func in ("MAX", "LSTM"):
+    if agg_func in ("MAX", "LSTM", "POOL"):
+        table = h
+        if agg_func == "POOL":
+            with span("serve.pool", device=h.device, layer=layer,
+                      rows=h.shape[0]):
+                table = pool_transform(params["pool"][layer], h)   # [N, P]
         out = []
         for r in rows:
             with span("serve.aggregate", layer=layer, rows=r.stop - r.start):
-                if agg_func == "MAX":
-                    agg = max_aggregate(h, idx[r], mask[r])
+                if agg_func in ("MAX", "POOL"):
+                    agg = max_aggregate(table, idx[r], mask[r])
                 else:
                     agg = lstm_aggregate(params["agg"][layer], h, idx[r],
                                          mask[r])
-            with span("serve.transform", layer=layer):
+            with span("serve.transform", layer=layer,
+                      device=h.device if agg_func == "POOL" else None):
                 self_rows = agg if cfg.gcn else self_h[r]
                 out.append(sage_layer_apply(params["layers"][layer],
                                             self_rows, agg, gcn=cfg.gcn))
@@ -230,6 +243,7 @@ def full_graph_embeddings(params: dict, cfg: GraphSageConfig,
     n = pad.num_nodes
     if dev.type != "cuda":
         gather_dim = (cfg.out_size if cfg.agg_func == "MEAN"
+                      else cfg.pool_size if cfg.agg_func == "POOL"
                       else max(int(feats.shape[1]), cfg.out_size))
         block = _pick_block(n, pad.width, gather_dim,
                             compute_dtype(cfg).itemsize, block)
@@ -262,7 +276,8 @@ def full_graph_embeddings_sharded(params: dict, cfg: GraphSageConfig,
 
     Returns the whole [N, out_size] table on every rank (a last all_gather),
     float32 numpy, or with ``fetch=False`` the on-device tensor in the
-    compute dtype."""
+    compute dtype.  POOL is refused (``models.graphsage.refuse_pool``)."""
+    refuse_pool(cfg, "full_graph_embeddings_sharded")
     dev = _resolve_device(device)
     rank, world = rank_world(group)
     params = params_from_jax(params, dev)
@@ -317,7 +332,10 @@ def _expected_shapes(mcfg: GraphSageConfig, num_classes: int) -> dict:
     for i in range(mcfg.num_layers):
         d = mcfg.layer_input_size(i)
         shapes[f"sage/layers/{i}/weight"] = (mcfg.out_size,
-                                             d * (1 if mcfg.gcn else 2))
+                                             mcfg.sage_input_size(i))
+        if mcfg.agg_func == "POOL":
+            shapes.update({f"sage/pool/{i}/weight": (mcfg.pool_size, d),
+                           f"sage/pool/{i}/bias": (mcfg.pool_size,)})
         if mcfg.agg_func == "LSTM":
             shapes.update({f"sage/agg/{i}/w_ih": (4 * d, d),
                            f"sage/agg/{i}/w_hh": (4 * d, d),
@@ -331,11 +349,16 @@ def export_bundle(path: str, params: dict, mcfg: GraphSageConfig,
     """Write a self-contained serving bundle: ``bundle.json`` + params.
 
     ``params`` is the pytree {"sage": ..., "clf": ...} of tensors or numpy
-    arrays; they are stored as float32 numpy arrays keyed by pytree path."""
+    arrays; they are stored as float32 numpy arrays keyed by pytree path.
+    ``pool_size`` is recorded for POOL alone, so that every other model's
+    ``bundle.json`` is the JAX package's record."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
+    model = dataclasses.asdict(mcfg)
+    if mcfg.agg_func != "POOL":
+        del model["pool_size"]
     record = {
-        "model": dataclasses.asdict(mcfg),
+        "model": model,
         "num_classes": int(num_classes),
         "format_version": 1,
     }

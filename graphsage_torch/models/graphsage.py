@@ -18,7 +18,7 @@ layer, bottom-up:
 
 Rows past the real union size are padding: idx/self_idx 0, mask 0.
 
-The encoder trains MEAN, MAX and LSTM GraphSAGE, in float32 or, given
+The encoder trains MEAN, MAX, LSTM and POOL GraphSAGE, in float32 or, given
 bfloat16 tables and params that the trainers round to bfloat16
 (``train.dense.cast_compute``), in bfloat16.  A MEAN layer
 aggregates with ``ops.aggregate.mean_aggregate`` (the ``gather_mean`` kernel
@@ -27,6 +27,18 @@ on the card, with its scatter-add backward), a MAX layer with
 layer with ``models.lstm_agg.lstm_aggregate`` (the ``gather_rows`` kernel,
 then the cell), whatever ``impl`` says; ``impl`` still decides the layer
 structure, as in the JAX package.  The pretransform applies to MEAN only.
+
+POOL is GraphSAGE-pool (Hamilton et al. 2017, Eq. 3), which the JAX package
+does not have: each layer first puts every row of the previous layer's
+matrix through its pool MLP once, z = relu(h W_pool^T + b) (the frontier's
+unique source rows, not each sampled slot: the authors' code applies the
+MLP to every slot), then ``max_aggregate`` over the slots of z, then the
+sage layer relu(W [self || max]) with W [H, D + P].  Its parameters are
+``{"layers": [{"weight"}], "pool": [{"weight", "bias"}]}``; the compact
+pipeline and full-graph serving run it, and the cached, dense and
+distributed pipelines and sharded serving refuse it
+(:func:`refuse_pool`): their leaf caches and exchanges hold raw-feature
+aggregates, which a trained pool MLP makes meaningless.
 """
 
 from __future__ import annotations
@@ -36,12 +48,13 @@ from typing import Any, Sequence
 
 import torch
 
-from graphsage_torch.models.layers import (init_sage_layer,
-                                           mean_pretransform,
-                                           sage_layer_apply)
+from graphsage_torch.models.layers import (init_pool, mean_pretransform,
+                                           pool_transform, sage_layer_apply,
+                                           xavier_uniform)
 from graphsage_torch.models.lstm_agg import init_lstm_agg, lstm_aggregate
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 from graphsage_torch.ops.scatter import take_rows
+from graphsage_torch.utils.obs import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +70,7 @@ class GraphSageConfig:
     input_size: int = 1433
     out_size: int = 128          # reference src/experiments.conf:12
     gcn: bool = False
-    agg_func: str = "MEAN"       # MEAN | MAX | LSTM
+    agg_func: str = "MEAN"       # MEAN | MAX | LSTM | POOL
     # The JAX package's switch between its XLA ops and its Pallas kernels.
     # Kept so that bundles read the same; the port's aggregations on the
     # card always run its CUDA kernels.
@@ -68,11 +81,23 @@ class GraphSageConfig:
     # MEAN-layer restructuring (transform the table, then average H-wide
     # rows) for the sampled encoder; full-graph serving always applies it.
     mean_pretransform: str = "auto"   # auto | never | always
+    # POOL's hidden width, the pool MLP's output: 512 for the authors'
+    # model_size "small", 1024 for "big" (graphsage/aggregators.py).  A
+    # bundle records it for POOL only (``infer.export_bundle``).
+    pool_size: int = 512
 
     def layer_input_size(self, layer: int) -> int:
         """Layer 1 consumes raw features, deeper layers consume out_size
         (reference src/models.py:237-239)."""
         return self.input_size if layer == 0 else self.out_size
+
+    def sage_input_size(self, layer: int) -> int:
+        """The width of the sage weight's input, [self || aggregate]: twice
+        the layer's input (the aggregate alone with gcn), or for POOL the
+        input and the pooled row's ``pool_size``."""
+        agg = (self.pool_size if self.agg_func == "POOL"
+               else self.layer_input_size(layer))
+        return agg if self.gcn else self.layer_input_size(layer) + agg
 
 
 def compute_dtype(cfg: GraphSageConfig) -> torch.dtype:
@@ -89,22 +114,40 @@ def init_graphsage(generator: torch.Generator, cfg: GraphSageConfig,
     weights, and for LSTM {"agg": [cell, ...]}, one ``init_lstm_agg`` cell a
     layer with hidden size equal to the layer's input size, all drawn from
     ``generator`` layer by layer: the layer's weight, then its cell (the
-    JAX package's key order, ``graphsage_tpu/models/graphsage.py:78-92``)."""
-    params: dict = {"layers": [], "agg": []}
+    JAX package's key order, ``graphsage_tpu/models/graphsage.py:78-92``).
+    POOL draws the layer's weight [out_size, in + pool_size], then its pool
+    MLP (``init_pool``) into {"pool": [{"weight", "bias"}, ...]}."""
+    params: dict = {"layers": [], "agg": [], "pool": []}
     for i in range(cfg.num_layers):
         in_size = cfg.layer_input_size(i)
-        params["layers"].append(init_sage_layer(
-            generator, in_size, cfg.out_size, gcn=cfg.gcn, dtype=dtype))
+        params["layers"].append({"weight": xavier_uniform(
+            generator, (cfg.out_size, cfg.sage_input_size(i)), dtype)})
         if cfg.agg_func == "LSTM":
             params["agg"].append(init_lstm_agg(generator, in_size, dtype))
-    if not params["agg"]:
-        del params["agg"]
+        if cfg.agg_func == "POOL":
+            params["pool"].append(init_pool(generator, in_size,
+                                            cfg.pool_size, dtype))
+    for key in ("agg", "pool"):
+        if not params[key]:
+            del params[key]
     return params
 
 
 def _check_trainable(cfg: GraphSageConfig) -> None:
-    if cfg.agg_func not in ("MEAN", "MAX", "LSTM"):
+    if cfg.agg_func not in ("MEAN", "MAX", "LSTM", "POOL"):
         raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
+
+
+def refuse_pool(cfg: GraphSageConfig, where: str) -> None:
+    """Raise for a POOL model on a path that does not run it (``where``
+    names the path)."""
+    if cfg.agg_func == "POOL":
+        raise ValueError(
+            f"agg_func POOL is not supported by {where}: it trains on the "
+            "compact pipeline and serves through full_graph_embeddings; "
+            "this path keeps raw-feature aggregates (a leaf cache or an "
+            "exchange of raw rows), which a layer's trained pool MLP makes "
+            "meaningless")
 
 
 def _aggregate(cfg: GraphSageConfig, params: dict, layer: int,
@@ -119,6 +162,12 @@ def _aggregate(cfg: GraphSageConfig, params: dict, layer: int,
     if cfg.agg_func == "LSTM":
         return lstm_aggregate(params["agg"][layer], h, frontier.idx,
                               frontier.mask)
+    if cfg.agg_func == "POOL":
+        # the MLP over each of the previous layer's rows once, then the max
+        # over the slots of the pooled rows
+        with span("step.pool", layer=layer, rows=h.shape[0]):
+            z = pool_transform(params["pool"][layer], h)
+        return max_aggregate(z, frontier.idx, frontier.mask)
     raise ValueError(f"unknown agg_func {cfg.agg_func!r}")
 
 

@@ -9,7 +9,9 @@ call the same functions.
 Reference semantics:
 - SageLayer (reference src/models.py:189-220): weight W in [out, 2*in] (or
   [out, in] in gcn mode), xavier-uniform init, **no bias**; forward is
-  relu(concat([self, agg]) @ W.T).
+  relu(concat([self, agg]) @ W.T).  A GraphSAGE-pool layer aggregates
+  P-wide pooled rows, so its W is [out, in + P] ([out, P] with gcn), and
+  its pool MLP (``init_pool``, ``pool_transform``) has a bias.
 - Classification (reference src/models.py:8-27): Linear(emb -> classes) with
   bias, xavier-uniform on the weight, U(+-1/sqrt(fan_in)) on the bias, then
   log_softmax.
@@ -49,6 +51,7 @@ from torch import nn
 from graphsage_torch.models.lstm_agg import LSTMAggregator
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
 from graphsage_torch.ops.pretransform import pretransform
+from graphsage_torch.utils import obs
 
 
 torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -69,6 +72,16 @@ def init_sage_layer(generator: torch.Generator, input_size: int,
                     dtype: torch.dtype = torch.float32) -> dict:
     in_total = input_size if gcn else 2 * input_size
     return {"weight": xavier_uniform(generator, (out_size, in_total), dtype)}
+
+
+def init_pool(generator: torch.Generator, input_size: int, pool_size: int,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """GraphSAGE-pool's per-neighbour MLP of one layer: a xavier-uniform
+    weight [pool_size, input_size] and a zero bias [pool_size], the
+    authors' ``Dense`` layer (``graphsage/layers.py``)."""
+    return {"weight": xavier_uniform(generator, (pool_size, input_size),
+                                     dtype),
+            "bias": torch.zeros((pool_size,), dtype=dtype)}
 
 
 def init_classifier(generator: torch.Generator, emb_size: int,
@@ -109,6 +122,29 @@ def mean_pretransform(w: torch.Tensor, h: torch.Tensor,
         d = h.shape[1]
         w = torch.cat([w[:, :d], w[:, d:]], dim=0)  # [2H, D]
     return torch.matmul(h.float(), w.T).to(h.dtype)
+
+
+def pool_transform(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """GraphSAGE-pool's per-neighbour MLP over every row of ``h`` [M, D]:
+    relu(h @ W_pool.T + b) -> [M, P] in h's dtype, the products summed in
+    float32 and rounded once (Hamilton et al. 2017, Eq. 3).  Applied to
+    each source row once; the max over a node's slots then reads its rows.
+
+    A bfloat16 table in a call that autograd would not record (serving,
+    evaluation) takes ``ops.pretransform.pretransform`` with its
+    bias-and-relu epilogue: the float32 weight split exactly into three
+    bfloat16 pieces, one kernel launch on the card.  Every other call, a
+    float32 table or a differentiated one, takes the float32
+    ``torch.matmul`` and adds the bias (the trainers' bfloat16-rounded one
+    under bfloat16 compute) to the float32 sums."""
+    w, b = params["weight"], params["bias"]
+    obs.count("pool.transform_rows", h.shape[0])
+    if h.dtype == torch.bfloat16 and not (
+            torch.is_grad_enabled()
+            and (h.requires_grad or w.requires_grad or b.requires_grad)):
+        return pretransform(h, w, bias=b)
+    z = torch.matmul(h.float(), w.float().T) + b.float()
+    return torch.relu(z).to(h.dtype)
 
 
 def sage_layer_apply(params: dict, self_feats: torch.Tensor,

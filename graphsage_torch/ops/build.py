@@ -72,11 +72,14 @@ _SCRATCH_ARGS = [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
 _LATENCY_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                  ctypes.c_int64, ctypes.c_void_p]
 # pretransform: (device, h, h_stride, pieces, z, N, K, P, bn, unit, stream);
-# its pack: (device, w, w_stride, out, P, K, bn, stream)
+# with the epilogue, the bias before the stream; its pack: (device, w,
+# w_stride, out, P, K, bn, stream)
 _PRETRANSFORM_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_void_p]
+_PRETRANSFORM_BIAS_ARGS = _PRETRANSFORM_ARGS[:-1] + [ctypes.c_void_p,
+                                                     ctypes.c_void_p]
 _PACK_ARGS = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _ERROR_STRING = ([ctypes.c_int], ctypes.c_char_p)
@@ -103,6 +106,7 @@ _SIGNATURES = {
     },
     "pretransform": {
         "gs_pretransform": (_PRETRANSFORM_ARGS, ctypes.c_int),
+        "gs_pretransform_bias_relu": (_PRETRANSFORM_BIAS_ARGS, ctypes.c_int),
         "gs_pretransform_pack": (_PACK_ARGS, ctypes.c_int),
         "gs_error_string": _ERROR_STRING,
     },

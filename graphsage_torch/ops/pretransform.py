@@ -1,6 +1,8 @@
 """MEAN's pretransform of a bfloat16 table: ``z = h @ w.T`` with the float32
-weight split exactly into three bfloat16 pieces.  Plain PyTorch and the
-CUDA kernel.
+weight split exactly into three bfloat16 pieces, and GraphSAGE-pool's pool
+transform, ``z = relu(h @ w.T + b)``: the same product with a float32 bias
+and a relu applied to the float32 sums before the one rounding.  Plain
+PyTorch and the CUDA kernel.
 
 The table ``h`` [N, K] is bfloat16, so each of its elements is exact in
 bfloat16.  The float32 weight ``w`` [P, K] is the exact sum of three
@@ -21,8 +23,11 @@ the sums in another order, rounded once to bfloat16, as the JAX package's
   kernel's layout (:func:`pack_pieces` of :func:`split_weight`).
 - ``pretransform``: splits the weight and takes the plain version for a CPU
   table; a CUDA table launches the kernel or raises, with no fallback.
-  Forward only: ``models.layers.mean_pretransform`` calls it where autograd
-  would not record the call.
+  Forward only: ``models.layers.mean_pretransform`` and
+  ``models.layers.pool_transform`` call it where autograd would not record
+  the call.  Given a ``bias``, the kernel's epilogue adds it and takes the
+  relu (``gs_pretransform_bias_relu``); without one it launches MEAN's
+  kernel, which has no epilogue.
 """
 
 from __future__ import annotations
@@ -56,14 +61,18 @@ def split_weight(w: torch.Tensor) -> torch.Tensor:
     return torch.stack(pieces)
 
 
-def pretransform_plain(h: torch.Tensor, pieces: torch.Tensor) -> torch.Tensor:
+def pretransform_plain(h: torch.Tensor, pieces: torch.Tensor,
+                       bias: torch.Tensor | None = None) -> torch.Tensor:
     """h [N, K] bfloat16 x pieces [3, P, K] bfloat16 -> [N, P] bfloat16: the
     three pieces' products added into one float32 accumulator, rounded
-    once (plain)."""
+    once (plain).  With ``bias`` [P] (taken in float32), relu(sums + bias)
+    is rounded instead."""
     h32 = h.float()
     z = torch.matmul(h32, pieces[0].float().T)
     for piece in pieces[1:]:
         z.addmm_(h32, piece.float().T)
+    if bias is not None:
+        z = torch.relu(z + bias.float())
     return z.to(torch.bfloat16)
 
 
@@ -98,9 +107,11 @@ def pack_pieces(pieces: torch.Tensor, bn: int) -> torch.Tensor:
         chunks.shape)).reshape(kt, ct, q, bn, SLICE).contiguous()
 
 
-def _check_kernel_args(h: torch.Tensor, w: torch.Tensor) -> None:
+def _check_kernel_args(h: torch.Tensor, w: torch.Tensor,
+                       bias: torch.Tensor | None = None) -> None:
     """What the kernel takes: h [N, K] bfloat16 and w [P, K] float32, each
-    with unit column stride (any row stride), on one CUDA device."""
+    with unit column stride (any row stride), and the epilogue's bias, a
+    contiguous float32 [P] or None, on one CUDA device."""
     if h.dim() != 2 or w.dim() != 2 or w.shape[1] != h.shape[1]:
         raise ValueError(f"expected h [N, K] and w [P, K]; got "
                          f"{tuple(h.shape)}, {tuple(w.shape)}")
@@ -114,6 +125,12 @@ def _check_kernel_args(h: torch.Tensor, w: torch.Tensor) -> None:
     if max(*h.shape, w.shape[0], h.stride(0), w.stride(0)) > _INT_MAX:
         raise ValueError("N, K, P and the row strides must each fit in 32 "
                          "bits")
+    if bias is not None:
+        if bias.shape != (w.shape[0],) or bias.dtype != torch.float32:
+            raise ValueError(f"bias must be float32 [{w.shape[0]}]; got "
+                             f"{bias.dtype} {tuple(bias.shape)}")
+        if bias.stride(0) != 1 or bias.device != h.device:
+            raise ValueError("bias must be contiguous, on h's device")
     if not (h.is_cuda and w.device == h.device):
         raise ValueError(f"h and w must lie on one CUDA device; got "
                          f"{h.device}, {w.device}")
@@ -125,17 +142,22 @@ def _raise_for(lib, rc: int, what: str) -> None:
                            f"({lib.gs_error_string(rc).decode()})")
 
 
-def pretransform_kernel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def pretransform_kernel(h: torch.Tensor, w: torch.Tensor,
+                        bias: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the ``pretransform`` CUDA kernel, after its ``pack_kernel``:
     [N, K] x [P, K] -> [N, P] bfloat16, :func:`pretransform_plain`'s sums
-    of :func:`split_weight`'s pieces in the kernel's order.  Takes what
+    of :func:`split_weight`'s pieces in the kernel's order; with ``bias``
+    the epilogue's relu(sums + bias).  Takes what
     :func:`_check_kernel_args` allows; an empty table or weight launches
-    nothing."""
-    _check_kernel_args(h, w)
+    nothing (with a bias and K = 0, z is relu(bias) on every row)."""
+    _check_kernel_args(h, w, bias)
     n, k = h.shape
     p = w.shape[0]
     if n == 0 or p == 0 or k == 0:
-        return torch.zeros((n, p), dtype=torch.bfloat16, device=h.device)
+        z = torch.zeros((n, p), dtype=torch.float32, device=h.device)
+        if bias is not None:
+            z = torch.relu(z + bias)
+        return z.to(torch.bfloat16)
     unit, bn = pretransform_plan(h.data_ptr() % 16, h.stride(0) * 2, k * 2, p)
     lib = build.load_library("pretransform")
     stream = torch.cuda.current_stream(h.device).cuda_stream
@@ -145,20 +167,30 @@ def pretransform_kernel(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         h.device.index, w.data_ptr(), w.stride(0), packed.data_ptr(), p, k,
         bn, stream), "pretransform's pack")
     z = torch.empty((n, p), dtype=torch.bfloat16, device=h.device)
-    _raise_for(lib, lib.gs_pretransform(
-        h.device.index, h.data_ptr(), h.stride(0), packed.data_ptr(),
-        z.data_ptr(), n, k, p, bn, unit, stream), "pretransform")
+    if bias is None:
+        _raise_for(lib, lib.gs_pretransform(
+            h.device.index, h.data_ptr(), h.stride(0), packed.data_ptr(),
+            z.data_ptr(), n, k, p, bn, unit, stream), "pretransform")
+    else:
+        _raise_for(lib, lib.gs_pretransform_bias_relu(
+            h.device.index, h.data_ptr(), h.stride(0), packed.data_ptr(),
+            z.data_ptr(), n, k, p, bn, unit, bias.data_ptr(), stream),
+            "pretransform")
     LAUNCHES["pretransform"] += 1
     obs.count("serve.pretransform_kernel", n)
     return z
 
 
-def pretransform(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def pretransform(h: torch.Tensor, w: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> torch.Tensor:
     """``h @ w.T`` for a bfloat16 table ``h`` [N, K] and a float32 weight
     ``w`` [P, K] (any float dtype is taken in float32), rounded once to
-    bfloat16.  CPU tensors take :func:`pretransform_plain`; CUDA tensors
-    launch the ``pretransform`` kernel.  No gradient."""
+    bfloat16; with ``bias`` [P] (taken in float32), ``relu(h @ w.T +
+    bias)`` rounded once.  CPU tensors take :func:`pretransform_plain`;
+    CUDA tensors launch the ``pretransform`` kernel.  No gradient."""
     w = w.to(h.device, torch.float32)
+    if bias is not None:
+        bias = bias.to(h.device, torch.float32).contiguous()
     if not h.is_cuda:
-        return pretransform_plain(h, split_weight(w))
-    return pretransform_kernel(h, w)
+        return pretransform_plain(h, split_weight(w), bias)
+    return pretransform_kernel(h, w, bias)

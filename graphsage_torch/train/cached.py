@@ -47,7 +47,8 @@ import dataclasses
 import torch
 
 from graphsage_torch.losses import supervised_nll, unsup_loss_from_pairbatch
-from graphsage_torch.models.graphsage import GraphSageConfig, compute_dtype
+from graphsage_torch.models.graphsage import (GraphSageConfig, compute_dtype,
+                                              refuse_pool)
 from graphsage_torch.models.layers import classifier_apply, sage_layer_apply
 from graphsage_torch.models.lstm_agg import lstm_scan
 from graphsage_torch.ops.aggregate import max_aggregate, mean_aggregate
@@ -60,6 +61,7 @@ from graphsage_torch.utils.obs import span
 
 def _check_cached(mcfg: GraphSageConfig) -> None:
     """MEAN, MAX and LSTM (the hybrid), in float32 or bfloat16."""
+    refuse_pool(mcfg, "the cached pipelines")
     if mcfg.agg_func not in ("MEAN", "MAX", "LSTM"):
         raise ValueError(f"unknown agg_func {mcfg.agg_func!r}")
     compute_dtype(mcfg)

@@ -47,7 +47,8 @@ from graphsage_torch.convert import _tree_map
 from graphsage_torch.losses import supervised_nll, unsup_loss_from_pairbatch
 from graphsage_torch.models.graphsage import (Frontier, GraphSageConfig,
                                               compute_dtype,
-                                              graphsage_apply_gathered)
+                                              graphsage_apply_gathered,
+                                              refuse_pool)
 from graphsage_torch.models.layers import classifier_apply
 from graphsage_torch.parallel import comm
 from graphsage_torch.parallel.mesh import Mesh, batch_rows
@@ -106,6 +107,7 @@ def make_dense_sup_step(mcfg: GraphSageConfig, fanout: int = 10,
     loss returned is the mean over the data ranks, the global batch's
     mean NLL.  The replicated LSTM cells' gradient shares are summed over
     the model group (``optim.apply_gradients_sharded``)."""
+    refuse_pool(mcfg, "the dense pipeline")
     partial_sum = None
     if mesh is not None:
         partial_sum = functools.partial(comm.sum_partials,
@@ -153,6 +155,7 @@ def make_dense_unsup_step(mcfg: GraphSageConfig, unsup_loss: str = "normal",
     (``PairBatch.unique_nodes`` pads with node 0), so that plus_unsup's NLL
     leaves the padding out; pass ``arange(U_pad) < pb.num_unique``, as the
     trainers do."""
+    refuse_pool(mcfg, "the dense pipeline")
     def step(params, feats, hop, batch, labels, pairs, row_mask=None):
         embs = dense_forward(params, mcfg, feats, hop, batch, fanout)
         loss = unsup_loss_from_pairbatch(embs, pairs, unsup_loss, q=q,

@@ -30,7 +30,8 @@ import torch
 from graphsage_torch.data.loaders import Dataset
 from graphsage_torch.infer import _resolve_device
 from graphsage_torch.losses import supervised_nll
-from graphsage_torch.models.graphsage import GraphSageConfig, init_graphsage
+from graphsage_torch.models.graphsage import (GraphSageConfig, init_graphsage,
+                                              refuse_pool)
 from graphsage_torch.models.layers import classifier_apply, init_classifier
 from graphsage_torch.parallel import comm
 from graphsage_torch.parallel.halo import partition_bounds, shard_features
@@ -86,6 +87,7 @@ class DistTrainer:
         improvement.  ``params``: the initial {"sage", "clf"} pytree; by
         default drawn from a ``torch.Generator`` seeded ``tcfg.seed`` (the
         same on every rank)."""
+        refuse_pool(mcfg, "the dist pipeline")
         self.checkpoint_fn = checkpoint_fn
         self.group = group
         self.rank, self.world = comm.rank_world(group)

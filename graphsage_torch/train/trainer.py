@@ -27,8 +27,9 @@ Parameters are ``{"sage": {"layers": [{"weight"}]}, "clf": {"weight",
 tensors, the JAX package's layout, so ``convert.params_from_jax`` carries a
 JAX ``Trainer``'s params over unchanged.  The trainer runs on the card
 unless ``device="cpu"`` is given; with no card and no device it raises.
-MEAN, MAX and LSTM train (LSTM batches get their slots shuffled on the
-host, as in the JAX package), in float32 or in bfloat16 with float32 master
+MEAN, MAX, LSTM and POOL train (LSTM batches get their slots shuffled on the
+host, as in the JAX package; POOL's params hold ``"sage": {"pool": [{"weight",
+"bias"}, ...]}`` too), in float32 or in bfloat16 with float32 master
 params: the feature table is held in the compute dtype, and the step rounds
 the params to it inside the loss (``train.dense.cast_compute``), as the
 JAX package's step does.  Embeddings come back to the host as float32, and
@@ -175,8 +176,8 @@ class Trainer:
 
     @staticmethod
     def _check_config(model_cfg: GraphSageConfig) -> None:
-        """The compact pipeline trains MEAN, MAX and LSTM in float32 or
-        bfloat16."""
+        """The compact pipeline trains MEAN, MAX, LSTM and POOL in float32
+        or bfloat16."""
         _check_trainable(model_cfg)
         compute_dtype(model_cfg)
 

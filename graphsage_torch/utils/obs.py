@@ -15,7 +15,9 @@ Port of ``graphsage_tpu/utils/obs.py``:
 - ``profile`` writes a ``torch.profiler`` trace of a block, and
   ``enable_nan_checks`` turns autograd's NaN checks on and off;
 - ``span`` and ``count`` mark the phases of training and serving (host
-  batch, prefetch wait, the step's parts, layer 1, the serving transforms)
+  batch, prefetch wait, the step's parts, layer 1, the serving transforms,
+  GraphSAGE-pool's pool transforms: ``serve.pool`` and ``step.pool``, and
+  the counter ``pool.transform_rows``)
   while a ``torch.profiler`` records, on the profile's timeline and in a
   bounded in-memory store that ``records`` reads; ``Carry`` hands the
   on/off state to a worker thread.

@@ -230,11 +230,11 @@ def test_cached_forward_equals_full_graph_embeddings_under_take_all():
                      torch.Generator().manual_seed(0))
     for agg in ("MEAN", "MAX"):
         for gcn in (False, True):
-            cfg = GraphSageConfig(num_layers=2, input_size=8, out_size=6,
-                                  gcn=gcn, agg_func=agg)
+            kw = dict(num_layers=2, input_size=8, out_size=6, gcn=gcn,
+                      agg_func=agg)
+            cfg = GraphSageConfig(**kw)
             params = params_from_jax({"sage": jax.device_get(
-                jax_init_graphsage(jax.random.PRNGKey(3), JaxConfig(
-                    **dataclasses.asdict(cfg))))})
+                jax_init_graphsage(jax.random.PRNGKey(3), JaxConfig(**kw)))})
             cache = cached.refresh_leaf_cache(hop, _t(feats), fanout, agg=agg)
             ids, frontiers = cached.sample_cached_frontiers(hop, batch, cfg,
                                                             fanout)

@@ -1652,3 +1652,89 @@ def test_mean_pretransform_takes_the_kernel_where_autograd_would_not_record(
     torch.cuda.synchronize()
     assert agg.LAUNCHES["pretransform"] == before + 1
     assert z.shape == (300, 128) and z.dtype == torch.bfloat16
+
+
+# ------------------------ the pool transform's bias-and-relu epilogue
+
+POOL_SHAPES = [(4096, 602, 512), (4096, 256, 512)]    # GraphSAGE-pool layers
+
+
+def _exact_sum_inputs(n, k, p, dev, seed=0):
+    """Inputs whose float32 sums are exact in any order, so that the kernel
+    and the plain version agree bit for bit: h in {-1, 0, 1} with at most 4
+    nonzeros a row, w = j 2^-21 with |j| < 2^21 (21 significant bits: all
+    three pieces nonzero), bias = j 2^-21 with |j| < 2^21.  Every partial
+    sum is a multiple of 2^-21 under 5 in magnitude: 24 bits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randint(-1, 2, (n, k), generator=gen, device=dev).float()
+    keep = torch.rand(n, k, generator=gen, device=dev).argsort(1) < 4
+    h = (h * keep).bfloat16()
+    w = torch.randint(-2**21 + 1, 2**21, (p, k), generator=gen,
+                      device=dev).float() * 2.0**-21
+    bias = torch.randint(-2**21 + 1, 2**21, (p,), generator=gen,
+                         device=dev).float() * 2.0**-21
+    return h, w, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,p", POOL_SHAPES)
+def test_pretransform_epilogue_matches_plain_bit_for_bit_on_card(n, k, p):
+    """relu(h @ w.T + bias), rounded once: the epilogue kernel equals
+    pretransform_plain with the bias bit for bit where the sums are exact,
+    and on random inputs keeps the three-piece bar; a zero bias gives the
+    relu of the epilogue-free kernel's z bit for bit (the same sums, and
+    rounding commutes with relu)."""
+    dev = _card()
+    h, w, bias = _exact_sum_inputs(n, k, p, dev, seed=k)
+    before = agg.LAUNCHES["pretransform"]
+    got = pt.pretransform(h, w, bias=bias)
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["pretransform"] == before + 1
+    want = pt.pretransform_plain(h, pt.split_weight(w), bias)
+    assert torch.equal(got, want)
+    assert (got == 0).float().mean() > 0.2       # the relu cuts
+    h, w = _pretransform_inputs(n, k, p, 0, dev, seed=k + 1)
+    bias = torch.randn(p, device=dev) * 0.1
+    got = pt.pretransform(h, w, bias=bias)
+    want = pt.pretransform_plain(h, pt.split_weight(w), bias)
+    assert_three_piece_bar(got, want, h, w, identical=CARD_IDENTICAL)
+    zero = pt.pretransform(h, w, bias=torch.zeros(p, device=dev))
+    assert torch.equal(zero, torch.relu(pt.pretransform(h, w)))
+
+
+@pytest.mark.gpu
+def test_mean_and_pool_launch_their_own_kernels_on_card():
+    """MEAN's call launches ``pretransform_kernel`` (no epilogue) and the
+    pool transform ``pretransform_bias_relu_kernel``, by the profiler's
+    kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = _card()
+    h, w = _pretransform_inputs(1037, 602, 256, 0, dev)
+    pt.pretransform(h, w)                        # built and loaded
+    names = []
+    for bias in (None, torch.zeros(256, device=dev)):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            pt.pretransform(h, w, bias=bias)
+            torch.cuda.synchronize()
+        names.append({e.key for e in prof.key_averages()
+                      if "pretransform" in e.key})
+    assert any("pretransform_kernel" in k for k in names[0]), names
+    assert not any("bias_relu" in k for k in names[0]), names
+    assert any("pretransform_bias_relu_kernel" in k for k in names[1]), names
+
+
+@pytest.mark.gpu
+def test_pool_transform_takes_the_epilogue_where_autograd_would_not_record():
+    from graphsage_torch.models.layers import pool_transform
+    dev = _card()
+    h, w = _pretransform_inputs(300, 64, 512, 0, dev)
+    params = {"weight": w, "bias": torch.randn(512, device=dev) * 0.1}
+    before = agg.LAUNCHES["pretransform"]
+    with torch.no_grad():
+        z = pool_transform(params, h)
+    h.requires_grad_(True)
+    pool_transform(params, h)                       # differentiated
+    torch.cuda.synchronize()
+    assert agg.LAUNCHES["pretransform"] == before + 1
+    assert z.shape == (300, 512) and z.dtype == torch.bfloat16
+    assert torch.equal(z, pt.pretransform(h.detach(), w, params["bias"]))

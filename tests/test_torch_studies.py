@@ -235,10 +235,20 @@ def recorder():
     return RecordingTrainer
 
 
+def _model_fields(mcfg) -> dict:
+    """The model config's fields as the JAX package's config has them: the
+    port's also holds ``pool_size``, GraphSAGE-pool's width, which no study
+    sets (it keeps its default)."""
+    fields = dataclasses.asdict(mcfg)
+    if "pool_size" in fields:
+        assert fields.pop("pool_size") == 512
+    return fields
+
+
 def _configs(built):
     """(mcfg fields, tcfg fields, positional args, keywords) of each built
     trainer."""
-    return [(dataclasses.asdict(m), dataclasses.asdict(t), a, kw)
+    return [(_model_fields(m), dataclasses.asdict(t), a, kw)
             for _, m, t, a, kw in built]
 
 
